@@ -20,9 +20,11 @@ Left out of ``chd_tpu``'s detector, on purpose:
   of one video equal between V=1 and V=21.
 - ``use_pallas`` and its backend sniffing: the kernel is the MLP of every
   path, so there is nothing to select.
-- ``precision`` and ``mlp_dtype``: the port runs the MLP in full float32 on
-  CUDA cores, with no TF32 and no bf16. Lower-precision storage and
-  tensor-core matmuls wait for a label-agreement gate (ROADMAP).
+- ``precision`` and ``mlp_dtype``: the MLP has one precision per device.
+  On the card the kernel runs layers 0-2 on tensor cores as chd_tpu's
+  default ``precision="high"`` (3-pass bf16 split, float32 sums) and layers
+  3-4 in float32; on the CPU the plain version runs full float32. The
+  single-pass bf16 ``mlp_dtype`` waits for a label-agreement gate (ROADMAP).
 
 ``ContactDetector`` takes a ``ContactMLP`` where ``chd_tpu``'s takes the
 (params, state) pytrees; ``models.torch_convert.from_jax_params`` converts.
@@ -41,7 +43,7 @@ from ..ingest import openpose
 from ..models import contact_mlp
 from ..models.contact_mlp import ContactMLP
 from ..ops import gapfill, voting, windows
-from ..ops.fused_mlp import fused_mlp
+from ..ops.fused_mlp import MlpLayers, fused_mlp
 
 # Constants matching training of the reference model
 TRAIN_DIM = (1280, 720)
@@ -75,7 +77,7 @@ def subset_joints(joint_subset: Sequence[int]) -> Tuple[List[int], int, bool]:
 
 
 def mlp_layers(folded: Folded, *, window_size: int, joint_subset: Sequence[int],
-               use_confidence: bool, use_conv: bool) -> Layers:
+               use_confidence: bool, use_conv: bool) -> MlpLayers:
     """BN-folded weights → the kernel's ``(in, out)`` layers, once per detector.
 
     In conv mode the first layer is ``windows.layer1_conv_kernel`` as
@@ -89,7 +91,7 @@ def mlp_layers(folded: Folded, *, window_size: int, joint_subset: Sequence[int],
         K = windows.layer1_conv_kernel(folded["w"][0], window_size, J, root_in_subset,
                                        J - root_appended, use_confidence)
         layers[0] = (K.reshape(window_size * J * 3, -1), folded["b"][0])
-    return layers
+    return MlpLayers(layers)
 
 
 def mlp_logits(x: torch.Tensor, layers: Layers, *, window_size: int,
@@ -139,7 +141,8 @@ class ContactDetector:
 
     ``kw`` holds the keyword arguments of ``_infer_batch`` this detector runs
     with; ``layers`` the kernel's layers for them (``mlp_layers``) on
-    ``device``, built here once so that a call only launches kernels.
+    ``device``, built here once and packed for the kernel at the first call,
+    so that a call only launches kernels.
     """
 
     def __init__(

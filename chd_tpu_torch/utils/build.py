@@ -54,10 +54,12 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.chd_fused_mlp_forward.argtypes = [p, ll, ll, ll, ll] + [p] * 10 + [i] * 6 + [p, p]
+    lib.chd_fused_mlp_forward.argtypes = [p, ll, ll, ll, ll, i] + [p] * 8 + [i, p, p]
     lib.chd_fused_mlp_forward.restype = i
-    lib.chd_fused_mlp_smem_bytes.argtypes = [i] * 6
+    lib.chd_fused_mlp_smem_bytes.argtypes = [i]
     lib.chd_fused_mlp_smem_bytes.restype = i
+    lib.chd_fused_mlp_tiles.argtypes = [i]
+    lib.chd_fused_mlp_tiles.restype = i
     lib.chd_cuda_error_string.argtypes = [i]
     lib.chd_cuda_error_string.restype = ctypes.c_char_p
 

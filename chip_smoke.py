@@ -7,12 +7,18 @@ then, on the card:
 
 1. prints the card (``nvidia-smi``), the torch and CUDA versions, and pins
    float32 matmuls and convolutions to full precision (no TF32);
-2. builds the kernel and prints the build seconds and ptxas' report;
+2. builds the kernel and prints the build seconds, ptxas' registers and
+   spills, and the count of tensor-core ``HMMA`` instructions in the built
+   library (``cuobjdump -sass``), and fails if there is none;
 3. holds the fused-MLP kernel against its plain PyTorch version, dense rows
-   at B in {1, 7, 31, 32, 33, 256, 300} and strided (conv-mode) rows for the
+   at B in {1, 7, 31, 32, 33, 63, 64, 65, 256, 300} (the edges of the old
+   32-row and the new 64-row tile) and strided (conv-mode) rows for the
    ``lower`` and rootless ``lower_ankles`` joint sets, with the golden and a
-   seeded random model: logits within atol 2e-4, rtol 1e-4 (the f32 sums run
-   in another order than cuBLAS's);
+   seeded random model: logits within atol 2e-4, rtol 1e-4 (the kernel's
+   3-pass bf16 split keeps ~2e-5, as chd_tpu's ``precision="high"`` does);
+   it prints the kernel's and the float32 plain version's max |d| against a
+   float64 chain, and fails if the kernel's exceeds 2e-4, and the kernel's
+   against the split emulation ``fused_mlp_split_plain``;
 4. runs ``detect_contacts`` on the two video dirs of
    ``tests/fixtures/contact_golden.npz`` (the main path, with every launch
    count set to 0 just before and read just after): agreement with the
@@ -23,10 +29,14 @@ then, on the card:
    ``use_conv`` modes: binary agreement >= 0.999 and window-probability
    max |d| <= 1e-4, and frames/s of each (median of 3 synced runs); then the
    kernel alone at that batch's conv-mode rows, against its plain version
-   (phase 3's tolerance) and timed with CUDA events;
+   (phase 3's tolerance), timed with CUDA events, and its TFLOP/s on the
+   multiply-adds of the five layers;
 6. profiles 3 calls of each of phase 5's four paths with ``torch.profiler``:
    wall and device-busy time per call, the device's idle share, and the
-   largest device items.
+   largest device items;
+7. bitwise batch invariance: each video's contacts and window
+   probabilities on the card are the same alone (V=1) as in a V=21 batch,
+   in both ``use_conv`` modes.
 
 Then it prints one JSON line on the kernels, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -47,6 +57,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "contact_golden.npz")
 ATOL, RTOL = 2e-4, 1e-4          # kernel vs plain logits
+F64_MAX_D = 2e-4                 # kernel logits vs a float64 chain
 AGREE_MIN = 0.999                # binary contact agreement
 PROB_MAX_D = 1e-4                # window-probability max |d|, kernel vs plain
 BIG_V, BIG_F = 512, 240          # the realistic batch
@@ -79,7 +90,8 @@ def main() -> None:
     from chd_tpu_torch.contact import infer
     from chd_tpu_torch.models import contact_mlp, torch_convert
     from chd_tpu_torch.ops import gapfill
-    from chd_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+    from chd_tpu_torch.ops.fused_mlp import (fused_mlp, fused_mlp_plain,
+                                             fused_mlp_split_plain)
     from chd_tpu_torch.utils import build
 
     dev = torch.device("cuda")
@@ -106,6 +118,14 @@ def main() -> None:
     for line in k.log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"    ptxas: {line.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", k.path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    print(f"    SASS: {hmma} HMMA instructions; "
+          f"{k.lib.chd_fused_mlp_smem_bytes(351)} B of shared memory a block at d0=351")
+    if hmma == 0:
+        fail("the kernel's SASS has no HMMA (tensor-core) instruction")
 
     # -- 3. kernel against the plain version --------------------------------
     golden = np.load(GOLDEN)
@@ -118,6 +138,10 @@ def main() -> None:
 
     max_err = 0.0
 
+    def f64_plain(layers, x, width, row_stride):
+        return fused_mlp_plain([(w.double(), b.double()) for w, b in layers],
+                               x.double(), width, row_stride)
+
     def compare(what, run):
         nonlocal max_err
         got = run(fused_mlp)
@@ -127,17 +151,25 @@ def main() -> None:
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
         ok = got.shape == want.shape and torch.allclose(got, want, atol=ATOL, rtol=RTOL)
+        exact = run(f64_plain)
+        e_k = (got.double() - exact).abs().max().item()
+        e_p = (want.double() - exact).abs().max().item()
+        e_s = (got - run(fused_mlp_split_plain)).abs().max().item()
         print(f"    {what}: logits {tuple(got.shape)} max|d| {err:.3e} "
-              f"{'ok' if ok else 'MISMATCH'}")
+              f"{'ok' if ok else 'MISMATCH'}; vs f64: kernel {e_k:.3e}, plain {e_p:.3e}; "
+              f"vs split emulation {e_s:.3e}")
         if not ok:
             fail(f"kernel disagrees with the plain version: {what}")
+        if e_k > F64_MAX_D:
+            fail(f"kernel max|d| {e_k} against float64 exceeds {F64_MAX_D}: {what}")
 
     rng = np.random.default_rng(0)
-    print(f"[3] fused_mlp kernel vs plain (atol {ATOL}, rtol {RTOL})")
+    print(f"[3] fused_mlp kernel vs plain (atol {ATOL}, rtol {RTOL}), "
+          f"vs float64 (max|d| <= {F64_MAX_D})")
     for wname, model in (("golden", gmodel), ("random", rand_model(13))):
         layers = infer.ContactDetector(model, device=dev, use_conv=False).layers
         d0 = layers[0][0].shape[0]
-        for B in (1, 7, 31, 32, 33, 256, 300):
+        for B in (1, 7, 31, 32, 33, 63, 64, 65, 256, 300):
             x = torch.from_numpy(rng.normal(size=(B, d0)).astype(np.float32)).to(dev)
             compare(f"dense {wname} B={B}",
                     lambda mlp: mlp(layers, x, d0, d0))
@@ -250,8 +282,14 @@ def main() -> None:
     kernel_ms = [event_ms(fused_mlp), event_ms(fused_mlp)]
     plain_ms.append(event_ms(fused_mlp_plain))
     ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
+    layers, frames2d, width, row_stride = args
+    rows = frames2d.shape[0] * ((frames2d.shape[1] - width) // row_stride + 1)
+    dims = [width] + [w.shape[1] for w, _ in layers]
+    flop = 2 * rows * sum(a * b for a, b in zip(dims, dims[1:]))
     print(f"    fused_mlp alone, conv rows of V={BIG_V} F={BIG_F}: kernel {ms:.3f} ms, "
-          f"plain (unfold + 5 addmm) {p_ms:.3f} ms")
+          f"plain (unfold + 5 addmm) {p_ms:.3f} ms; {rows} rows x widths {dims}: "
+          f"{flop / 1e9:.1f} GFLOP, kernel {flop / ms / 1e9:.1f} TFLOP/s, "
+          f"plain {flop / p_ms / 1e9:.1f} TFLOP/s")
 
     # -- 6. where the time goes: torch.profiler over the realistic batch ----
     print(f"[6] torch.profiler, {PROF_CALLS} calls of each path (after phase 5's "
@@ -269,6 +307,19 @@ def main() -> None:
         for e in kernels[:5]:
             print(f"      {e.self_device_time_total / 1e3 / PROF_CALLS:8.3f} ms/call "
                   f"x{e.count // PROF_CALLS:<3d} {e.key[:90]}")
+
+    # -- 7. bitwise batch invariance on the card ----------------------------
+    kp = synth_videos(21, 40, seed=3)
+    for use_conv, det in dets.items():
+        c_all, p_all = det.infer(torch.from_numpy(kp))
+        same = True
+        for v in range(kp.shape[0]):
+            c1, p1 = det.infer(torch.from_numpy(kp[v:v + 1]))
+            same &= torch.equal(c1[0], c_all[v]) and torch.equal(p1[0], p_all[v])
+        print(f"[7] use_conv={use_conv}: each of 21 videos alone (V=1) == its rows "
+              f"in the V=21 batch, bitwise: {same}")
+        if not same:
+            fail(f"use_conv={use_conv}: a video's rows depend on the batch")
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -7,7 +7,15 @@ strided rows. Tolerance atol 2e-4, rtol 1e-4 on logits, as
 tests/test_pallas_mlp.py holds the Pallas kernel: float32 sums in different
 orders. The kernel itself runs only on a CUDA card:
 tests/test_torch_fused_mlp_cuda.py holds it against this plain version there.
+
+The kernel's arithmetic, the 3-pass bf16 split of chd_tpu's
+precision="high", is held here through its CPU emulation
+``fused_mlp_split_plain`` (against the same chd_tpu functions, a float64
+chain and the golden contacts), and the weight stream it reads through
+``pack_weights``.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +30,10 @@ from chd_tpu.ops.pallas_mlp import fused_mlp as pallas_fused_mlp
 from chd_tpu_torch.contact import infer
 from chd_tpu_torch.models import contact_mlp, torch_convert
 from chd_tpu_torch.ops import gapfill
-from chd_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
-from test_torch_contact_mlp import random_params
+from chd_tpu_torch.ops.fused_mlp import (fused_mlp, fused_mlp_plain, fused_mlp_split_plain,
+                                         pack_weights, split_bf16)
+from test_torch_contact_infer import FIXTURES
+from test_torch_contact_mlp import golden_state_dict, random_params
 
 ATOL, RTOL = 2e-4, 1e-4
 P = 5
@@ -58,11 +68,9 @@ def test_dense_rows_match_pallas_kernel(weights, B):
     np.testing.assert_allclose(got.numpy().reshape(B, P, 4), want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("joint_set", ["lower", "lower_ankles"])
-def test_strided_rows_match_jax_conv_path(joint_set):
-    """Conv mode: the kernel's strided first-layer rows over the preprocessed
-    frames, with layer1_conv_kernel weights, equal chd_tpu's temporal conv
-    followed by the folded tail."""
+def _conv_case(joint_set):
+    """chd_tpu's conv path + folded tail on seeded keypoints, and a function
+    of (use_conv, mlp) giving the port's logits on the same input."""
     joints, root, appended = infer.subset_joints(OP_JOINT_SUBSETS[joint_set])
     Jm = len(joints) - appended
     params, state = random_params(np.random.default_rng(1), in_dim=9 * Jm * 3)
@@ -84,16 +92,25 @@ def test_strided_rows_match_jax_conv_path(joint_set):
 
     xt = gapfill.preprocess_keypoints(torch.from_numpy(kp), 0.2, 200.0)
 
-    def logits(use_conv):
+    def logits(use_conv, mlp=fused_mlp):
         layers = infer.mlp_layers(_folded(params, state), window_size=9,
                                   joint_subset=OP_JOINT_SUBSETS[joint_set],
                                   use_confidence=True, use_conv=use_conv)
         return infer.mlp_logits(xt, layers, window_size=9, root_in_subset=root,
                                 root_appended=appended, use_confidence=True,
-                                use_conv=use_conv)
+                                use_conv=use_conv, mlp=mlp)
 
+    return want, logits
+
+
+@pytest.mark.parametrize("joint_set", ["lower", "lower_ankles"])
+def test_strided_rows_match_jax_conv_path(joint_set):
+    """Conv mode: the kernel's strided first-layer rows over the preprocessed
+    frames, with layer1_conv_kernel weights, equal chd_tpu's temporal conv
+    followed by the folded tail."""
+    want, logits = _conv_case(joint_set)
     got = logits(True)
-    assert got.shape == (V * (F - 8), 4 * P)
+    assert got.shape == (want.shape[0], 4 * P)
     np.testing.assert_allclose(got.numpy().reshape(-1, P, 4), want, atol=ATOL, rtol=RTOL)
 
     # the same rows through the materialized windows (dense mode)
@@ -162,3 +179,117 @@ def test_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.kernels()
     assert build._kernels is None
+
+
+def test_split_bf16_reconstructs_x():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.normal(size=10000) * 10.0 ** rng.uniform(-6, 6, 10000))
+                         .astype(np.float32))
+    hi, lo = split_bf16(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, x.to(torch.bfloat16))
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -16 * x.double().abs()).all())
+
+
+@pytest.mark.parametrize("B", [1, 7, 63, 64, 65, 300])
+def test_split_emulation_matches_pallas_kernel(weights, B):
+    """The kernel's 3-pass bf16 arithmetic on dense rows, around its 64-row
+    tile, against chd_tpu's Pallas kernel in interpret mode (float32)."""
+    params, state, jf = weights
+    x = np.random.default_rng(B).normal(size=(B, 351)).astype(np.float32)
+    want = np.asarray(pallas_fused_mlp(jf, jnp.asarray(x), P, interpret=True))
+    got = fused_mlp_split_plain(_layers(_folded(params, state)), torch.from_numpy(x), 351, 351)
+    assert got.shape == (B, 4 * P)
+    np.testing.assert_allclose(got.numpy().reshape(B, P, 4), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("joint_set", ["lower", "lower_ankles"])
+def test_split_emulation_matches_jax_conv_path(joint_set):
+    """The kernel's arithmetic on strided conv-mode rows against chd_tpu's
+    temporal conv followed by the folded tail."""
+    want, logits = _conv_case(joint_set)
+    got = logits(True, mlp=fused_mlp_split_plain)
+    np.testing.assert_allclose(got.numpy().reshape(-1, P, 4), want, atol=ATOL, rtol=RTOL)
+
+
+def test_split_emulation_against_float64_at_golden_weights():
+    """3 bf16 passes with float32 sums keep the golden MLP's logits within
+    1e-4 of a float64 chain (1.9e-5 measured on 4096 N(0, 1) rows)."""
+    folded = contact_mlp.fold_batchnorm(torch_convert.from_state_dict(golden_state_dict()))
+    layers = _layers(folded)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(4096, 351)).astype(np.float32))
+    got = fused_mlp_split_plain(layers, x, 351, 351)
+    want = fused_mlp_plain([(w.double(), b.double()) for w, b in layers], x.double(), 351, 351)
+    assert (got.double() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("use_conv", [True, False])
+def test_golden_contacts_with_split_emulation(use_conv):
+    """The golden detector flow (detect_contacts' scaling and padding) with
+    the kernel's arithmetic as the MLP: agreement >= 0.999 per video."""
+    data = np.load(os.path.join(FIXTURES, "contact_golden.npz"))
+    vids = sorted(k for k in data.files if k.startswith("keypoints_"))
+    det = infer.ContactDetector(torch_convert.from_state_dict(golden_state_dict()),
+                                device="cpu", use_conv=use_conv)
+    kps = [data[k].copy() for k in vids]
+    for kp in kps:
+        kp[..., :2] *= infer.TRAIN_DIM[0] / 1920.0
+    batch, _ = infer.pad_to_length(kps)
+    contacts, _ = infer._infer_batch(torch.from_numpy(batch), det.layers,
+                                     mlp=fused_mlp_split_plain, **det.kw)
+    for i, kp in enumerate(kps):
+        got = contacts[i, :kp.shape[0]].numpy()
+        want = data[f"contacts_{i}"]
+        assert got.shape == want.shape
+        agree = (got.astype(int) == want.astype(int)).mean()
+        assert agree >= 0.999, f"video {i}: agreement {agree}"
+
+
+def _unswizzle(half, rows, row_bits):
+    """One (rows x 16-byte chunks) half of a packed tile back to (rows, in)."""
+    t = half.reshape(rows, -1, 8)
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(t.shape[1])[None, :]
+    return t[r, c ^ row_bits(r)].reshape(rows, -1)
+
+
+@pytest.mark.parametrize("d0", [351, 243, 216])
+def test_pack_weights_is_the_kernels_tile_stream(d0):
+    """Walking the packed stream in the kernel's order (per 64-column h1
+    chunk: layer 0's 64 x 128 tiles along k, then layer 1's 512 x 16 tiles
+    along k; then layer 2's 64 x 128 tiles, k outer) and undoing the
+    swizzle gives back the split weights of layers 0-2, zero past d0."""
+    rng = np.random.default_rng(d0)
+    dims = [d0, *contact_mlp.HIDDEN, 20]
+    layers = [(torch.from_numpy(rng.normal(size=(dims[i], dims[i + 1])).astype(np.float32)),
+               torch.zeros(dims[i + 1])) for i in range(5)]
+    pack = pack_weights(layers)
+    kt0 = -(-d0 // 128)
+    assert pack.dtype == torch.bfloat16 and pack.shape == (16 * (kt0 + 4) + 8, 2, 8192)
+    w0 = torch.zeros((2, 1024, kt0 * 128), dtype=torch.bfloat16)
+    w1 = torch.zeros((2, 512, 1024), dtype=torch.bfloat16)
+    w2 = torch.zeros((2, 128, 512), dtype=torch.bfloat16)
+    tiles = iter(pack)
+    for c in range(16):
+        for kt in range(kt0):
+            tile = next(tiles)
+            for h in range(2):
+                w0[h, c * 64:(c + 1) * 64, kt * 128:(kt + 1) * 128] = _unswizzle(
+                    tile[h], 64, lambda r: r & 7)
+        for ks in range(4):
+            tile = next(tiles)
+            for h in range(2):
+                w1[h, :, c * 64 + ks * 16:c * 64 + (ks + 1) * 16] = _unswizzle(
+                    tile[h], 512, lambda r: (r >> 2) & 1)
+    for kt in range(4):
+        for nt in range(2):
+            tile = next(tiles)
+            for h in range(2):
+                w2[h, nt * 64:(nt + 1) * 64, kt * 128:(kt + 1) * 128] = _unswizzle(
+                    tile[h], 64, lambda r: r & 7)
+    assert next(tiles, None) is None
+    for got, (w, _) in zip((w0[:, :, :d0], w1, w2), layers):
+        hi, lo = split_bf16(w.T.contiguous())
+        assert torch.equal(got[0], hi) and torch.equal(got[1], lo)
+    assert not w0[:, :, d0:].any()

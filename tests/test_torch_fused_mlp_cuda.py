@@ -5,9 +5,14 @@ JAX, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fused_mlp_cuda.py
 
-Tolerance atol 2e-4, rtol 1e-4 on logits (float32 sums in another order than
-cuBLAS's); rows are bitwise the same whatever batch they are in, because the
-kernel sums each row alone in a fixed order.
+Tolerances on logits: atol 2e-4, rtol 1e-4 against the float32 plain version
+(the kernel's 3-pass bf16 split keeps ~2e-5, as chd_tpu's precision="high"
+does); atol 5e-5, rtol 1e-5 against the split emulation
+``fused_mlp_split_plain``, which rounds the same bf16 operands but sums the
+exact products in float32 through cuBLAS, where the tensor cores add each
+k16 step's products with their own internal rounding (~1.4e-5 measured at
+4096 rows on an H100). Rows are bitwise the same whatever batch they are in,
+because every row runs the same code in a fixed order.
 """
 import numpy as np
 import pytest
@@ -15,9 +20,11 @@ import torch
 
 from chd_tpu_torch.contact import infer
 from chd_tpu_torch.models import contact_mlp
-from chd_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from chd_tpu_torch.ops.fused_mlp import (MlpLayers, fused_mlp, fused_mlp_plain,
+                                         fused_mlp_split_plain)
 
 ATOL, RTOL = 2e-4, 1e-4
+SPLIT_ATOL, SPLIT_RTOL = 5e-5, 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -38,10 +45,10 @@ def model():
 
 def _layers(model):
     folded = contact_mlp.fold_batchnorm(model)
-    return [(w.T.contiguous().cuda(), b.cuda()) for w, b in zip(folded["w"], folded["b"])]
+    return MlpLayers((w.T.contiguous().cuda(), b.cuda()) for w, b in zip(folded["w"], folded["b"]))
 
 
-@pytest.mark.parametrize("B", [1, 7, 31, 32, 33, 256, 300])
+@pytest.mark.parametrize("B", [1, 7, 63, 64, 65, 300])  # around the 64-row tile
 def test_dense_rows(model, B):
     layers = _layers(model)
     x = torch.from_numpy(np.random.default_rng(B).normal(size=(B, 351)).astype(np.float32)).cuda()
@@ -50,6 +57,8 @@ def test_dense_rows(model, B):
     torch.cuda.synchronize()
     assert fused_mlp.launches == launches + 1
     torch.testing.assert_close(got, fused_mlp_plain(layers, x, 351, 351), atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got, fused_mlp_split_plain(layers, x, 351, 351),
+                               atol=SPLIT_ATOL, rtol=SPLIT_RTOL)
     assert torch.equal(fused_mlp(layers, x[:1].contiguous(), 351, 351), got[:1])
 
 
@@ -60,12 +69,43 @@ def test_strided_rows(model):
     torch.cuda.synchronize()
     assert got.shape == (3 * 52, 20)
     torch.testing.assert_close(got, fused_mlp_plain(layers, u, 351, 39), atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got, fused_mlp_split_plain(layers, u, 351, 39),
+                               atol=SPLIT_ATOL, rtol=SPLIT_RTOL)
 
 
 def test_wrapper_rejects_mixed_devices(model):
     layers = _layers(model)
     with pytest.raises(ValueError):
         fused_mlp(layers, torch.zeros((4, 351)), 351, 351)
+
+
+def test_wrapper_takes_only_layers_that_keep_their_packing(model):
+    layers = _layers(model)
+    x = torch.zeros((4, 351), device="cuda")
+    with pytest.raises(TypeError, match="MlpLayers"):
+        fused_mlp(list(layers), x, 351, 351)
+    pack = layers.packed()
+    fused_mlp(layers, x, 351, 351)
+    assert layers.packed() is pack
+
+
+@pytest.mark.parametrize("dims", [
+    [433, 1024, 512, 128, 32, 20],  # first layer wider than the staged rows
+    [351, 1024, 256, 128, 32, 20],  # hidden widths other than HIDDEN
+    [351, 1024, 512, 128, 32, 33],  # more than 32 outputs
+])
+def test_wrapper_rejects_widths_the_kernel_does_not_take(model, dims):
+    rng = np.random.default_rng(0)
+    layers = MlpLayers(
+        (torch.from_numpy(rng.normal(size=(dims[i], dims[i + 1])).astype(np.float32)).cuda(),
+         torch.zeros(dims[i + 1], device="cuda")) for i in range(5))
+    x = torch.zeros((4, dims[0]), device="cuda")
+    launches = fused_mlp.launches
+    with pytest.raises(ValueError, match="the kernel takes widths"):
+        fused_mlp(layers, x, dims[0], dims[0])
+    assert fused_mlp.launches == launches
+    # the plain version takes them
+    assert fused_mlp_plain(layers, x, dims[0], dims[0]).shape == (4, dims[-1])
 
 
 @pytest.mark.parametrize("use_conv", [True, False])
