@@ -29,13 +29,22 @@
 // The design:
 // - A block takes kRows = 64 rows. It gathers their first-layer inputs
 //   through the strides, splits them into bf16 hi and lo, and keeps them in
-//   shared memory for the whole block.
+//   shared memory for the whole block, for a first layer up to kD0Resident
+//   = 432 wide (every joint set but `full`). Wider rows (`full`, 675) do not
+//   fit beside the h1 chunk and the weight ring: the block then stages, for
+//   each layer-0 tile of each chunk, only that tile's 128 inputs of its rows,
+//   split, into one of two slab buffers, and re-reads them through the
+//   strides each chunk (L2 holds them). The tile's inputs are staged before
+//   the barrier that hands out its weight tile, so one warp's staging
+//   overlaps the others' MMAs. Split values, tiles and sum order are the
+//   same in both modes, so a row's logits do not depend on the mode.
 // - Layers 0 and 1 are fused over 16 chunks of 64 h1 columns: the chunk's
 //   h1 = relu(x @ W0[:, chunk] + b0) goes to shared memory, split, and
 //   h2 += h1_chunk @ W1[chunk, :] accumulates in registers (64 x 512 f32
 //   over 8 warps: 128 a thread). h1 never leaves the SM.
 // - h2 = relu(...) goes to shared memory, split, over the first-layer
-//   inputs; layer 2 (512 -> 128) runs from there, and layers 3-4 in f32.
+//   inputs (or slabs) and h1; layer 2 (512 -> 128) runs from there, and
+//   layers 3-4 in f32.
 // - Weights arrive as a stream of 32 KB tiles (hi then lo) that
 //   ops/fused_mlp.pack_weights lays out once per layers object, in exactly
 //   the order a block consumes them and in their shared-memory layout,
@@ -70,7 +79,8 @@ namespace {
 
 // Hidden widths the kernel is built for (models/contact_mlp.HIDDEN).
 constexpr int kD1 = 1024, kD2 = 512, kD3 = 128, kD4 = 32;
-constexpr int kD0Max = 432;  // widest first layer whose split rows fit
+constexpr int kD0Resident = 432;  // widest first layer whose split rows stay resident
+constexpr int kD0Max = 768;       // six layer-0 tiles; `full` (675) is the widest joint set
 constexpr int kD5Max = 32;
 
 constexpr int kRows = 64;      // rows per block
@@ -88,6 +98,8 @@ constexpr int kLdH1 = kNc + kPad;
 constexpr int kLdH2 = kD2 + kPad;
 constexpr int kLdH3 = kD3 + 4;  // f32
 constexpr int kLdH4 = kD4 + 1;  // f32
+constexpr int kLdSlab = kTileK + kPad;
+constexpr int kSlabBytes = 4 * kRows * kLdSlab;  // one staged layer-0 tile of inputs, hi and lo
 
 typedef __nv_bfloat16 bf16;
 
@@ -98,11 +110,16 @@ __host__ __device__ constexpr int k_tiles0(int d0) { return (round16(d0) + kTile
 __host__ __device__ constexpr int n_tiles(int d0) {
   return kChunks * (k_tiles0(d0) + kKs1) + kKt2 * kNt2;
 }
+__host__ __device__ constexpr bool slabs(int d0) { return d0 > kD0Resident; }
+// Bytes of the split first-layer inputs: all of them, or two slabs.
+__host__ __device__ constexpr int x_bytes(int d0) {
+  return slabs(d0) ? 2 * kSlabBytes : 4 * kRows * ld_x(d0);
+}
 
 // Bytes of the activation region: split x and the h1 chunk, then split h2
 // over them, then h3 and h4 in f32 over those. The weight ring follows.
 __host__ __device__ constexpr int act_bytes(int d0) {
-  return (imax(4 * kRows * ld_x(d0) + 4 * kRows * kLdH1,
+  return (imax(x_bytes(d0) + 4 * kRows * kLdH1,
                imax(4 * kRows * kLdH2, 4 * kRows * (kLdH3 + kLdH4))) + 127) & ~127;
 }
 __host__ __device__ constexpr int smem_bytes(int d0) {
@@ -226,6 +243,37 @@ __device__ __forceinline__ void init_bias(float (&v)[4], const float* b, int c) 
   v[1] = v[3] = __ldg(b + c + 1);
 }
 
+// Inputs c0 .. c0 + n - 1 (n even) of the block's rows, split into hi and
+// lo at columns 0 .. n - 1 of rows ld elements apart; zero past d0 and for
+// rows past the end of the batch. A warp takes rows warp, warp + 8, ...,
+// and sends their loads together.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ x,
+                                           const long long* row_start, int c0, int n,
+                                           int d0, bf16* hi, bf16* lo, int ld,
+                                           int warp, int lane) {
+  constexpr int kWarps = kThreads / 32, kRowsPerWarp = kRows / kWarps;
+  long long start[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) start[i] = row_start[warp + kWarps * i];
+  for (int c = 2 * lane; c < n; c += 64) {
+    const int col = c0 + c;
+    float v[kRowsPerWarp][2];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      v[i][0] = start[i] >= 0 && col < d0 ? x[start[i] + col] : 0.f;
+      v[i][1] = start[i] >= 0 && col + 1 < d0 ? x[start[i] + col + 1] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + kWarps * i;
+      split2(v[i][0], v[i][1], hi + r * ld + c, lo + r * ld + c);
+    }
+  }
+}
+
+// kSlabs: the first-layer inputs are staged a layer-0 tile at a time
+// (d0 > kD0Resident); otherwise they stay resident.
+template <bool kSlabs>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_mlp_kernel(const float* __restrict__ x, long long n_rows,
                      long long rows_per_group, long long group_stride,
@@ -234,11 +282,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ long long row_start[kRows];  // offset of each row in x; -1 past the end
 
-  const int k0p = round16(d0), ldx = ld_x(d0), kt0 = k_tiles0(d0);
+  const int k0p = round16(d0), ldx = kSlabs ? kLdSlab : ld_x(d0), kt0 = k_tiles0(d0);
   const int tiles = n_tiles(d0);
-  bf16* xh = reinterpret_cast<bf16*>(smem);
-  bf16* xl = xh + kRows * ldx;
-  bf16* h1h = xl + kRows * ldx;
+  bf16* xh = reinterpret_cast<bf16*>(smem);  // resident inputs, or slab 0 then slab 1
+  bf16* h1h = reinterpret_cast<bf16*>(smem + x_bytes(d0));
   bf16* h1l = h1h + kRows * kLdH1;
   bf16* h2h = reinterpret_cast<bf16*>(smem);
   bf16* h2l = h2h + kRows * kLdH2;
@@ -275,9 +322,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int s = 0; s < kStages - 1; ++s) fetch(s);
 
-  // The tile's first-layer rows, gathered through the strides and split;
-  // rows past the end of the batch and columns past d0 are zero. A warp
-  // takes rows warp, warp + 8, ..., and sends their loads together.
+  // The block's first-layer rows, gathered through the strides and split
+  // (all of them now, or a tile's slab at a time below).
   if (tid < kRows) {
     const long long gr = row0 + tid;
     row_start[tid] = gr < n_rows ? (gr / rows_per_group) * group_stride +
@@ -285,27 +331,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                  : -1;
   }
   __syncthreads();
-  {
-    constexpr int kWarps = kThreads / 32, kRowsPerWarp = kRows / kWarps;
-    long long start[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) start[i] = row_start[warp + kWarps * i];
-    for (int c = 2 * lane; c < k0p; c += 64) {
-      float v[kRowsPerWarp][2];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        v[i][0] = start[i] >= 0 && c < d0 ? x[start[i] + c] : 0.f;
-        v[i][1] = start[i] >= 0 && c + 1 < d0 ? x[start[i] + c + 1] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = warp + kWarps * i;
-        split2(v[i][0], v[i][1], xh + r * ldx + c, xl + r * ldx + c);
-      }
-    }
-  }
+  if constexpr (!kSlabs) stage_rows(x, row_start, 0, k0p, d0, xh, xh + kRows * ldx, ldx, warp, lane);
 
-  const uint32_t sxh = smem_u32(xh), sxl = smem_u32(xl);
   const uint32_t sh1h = smem_u32(h1h), sh1l = smem_u32(h1l);
 
   float acc2[4][8][4];  // [16-row group][n8 tile of the warp's 64 outputs]
@@ -322,14 +349,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j < 4; ++j) init_bias(acc0[j], p.b0, c * kNc + wn + j * 8 + 2 * tq);
 #pragma unroll 1
     for (int kt = 0; kt < kt0; ++kt) {
+      const int kn = min(kTileK, k0p - kt * kTileK);  // inputs of this tile
+      // The tile's split inputs: columns k0 .. of rows ldx apart at sxh, sxl.
+      // A slab is written before the barrier in next(); the one it
+      // overwrites was last read two tiles back, before the previous barrier.
+      bf16* th = kSlabs ? xh + ((c * kt0 + kt) & 1) * (kSlabBytes / 2) : xh;
+      const int k0 = kSlabs ? 0 : kt * kTileK;
+      if constexpr (kSlabs)
+        stage_rows(x, row_start, kt * kTileK, kn, d0, th, th + kRows * ldx, ldx, warp, lane);
+      const uint32_t sxh = smem_u32(th), sxl = smem_u32(th + kRows * ldx);
       const uint32_t w = next();
-      const int ksteps = min(kTileK / 16, (k0p - kt * kTileK) / 16);
+      const int ksteps = kn / 16;
 #pragma unroll
       for (int ks = 0; ks < kTileK / 16; ++ks) {
         if (ks < ksteps) {
           uint32_t ah[4], al[4], bh[4][2], bl[4][2];
-          load_a(sxh, ldx, wm, kt * kTileK + ks * 16, lane, ah);
-          load_a(sxl, ldx, wm, kt * kTileK + ks * 16, lane, al);
+          load_a(sxh, ldx, wm, k0 + ks * 16, lane, ah);
+          load_a(sxl, ldx, wm, k0 + ks * 16, lane, al);
           load_b_k(w, wn, ks * 16, lane, bh);
           load_b_k(w + kHalfBytes, wn, ks * 16, lane, bl);
           mma3(acc0, ah, al, bh, bl);
@@ -490,11 +526,12 @@ int chd_fused_mlp_forward(const float* x, long long n_rows,
   if (d0 < 1 || d0 > kD0Max || d5 < 1 || d5 > kD5Max) return (int)cudaErrorInvalidValue;
   const Tail p = {b0, b1, b2, w3, b3, w4, b4, d5};
   const int smem = smem_bytes(d0);
+  const auto kernel = slabs(d0) ? fused_mlp_kernel<true> : fused_mlp_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (n_rows + kRows - 1) / kRows;
-  fused_mlp_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       x, n_rows, rows_per_group, group_stride, row_stride, d0,
       static_cast<const bf16*>(wpack), p, out);
   return (int)cudaGetLastError();

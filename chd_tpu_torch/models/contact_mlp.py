@@ -10,17 +10,26 @@ load with no key mapping.
 For inference the eval-mode BN folds into the linear layers
 (``fold_batchnorm``), leaving a chain of five matmuls: the form that
 ``ops.fused_mlp`` runs as one kernel.
+
+In training mode ``forward`` is ``chd_tpu``'s ``apply(train=True)``:
+BatchNorm normalizes with the batch's biased variance and moves the running
+variance towards ``var * n / max(n - 1, 1)``, so a batch of one row (the
+ragged tail of an epoch) gives variance 0 and the BN bias, where
+``nn.BatchNorm1d`` would raise; dropout keeps 0.7 of the 128-wide
+activations before ``linear3`` and scales them by 1 / 0.7, from an explicit
+mask or generator, never the global RNG.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 HIDDEN = (1024, 512, 128, 32)
 DROPOUT_RATE = 0.3
+BN_MOMENTUM = 0.1  # torch BatchNorm1d default
 BN_EPS = 1e-5
 LINEAR_IDX = (0, 3, 6, 10, 13)  # Linear positions in ContactMLP.model
 BN_IDX = (1, 4, 7, 11)          # BatchNorm1d positions
@@ -56,15 +65,54 @@ class ContactMLP(nn.Module):
         layers.append(nn.Linear(dims[-2], dims[-1]))
         self.model = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, W, J, F) or (B, in_dim) → (B, out_dim) logits."""
-        return self.model(x.reshape(x.shape[0], -1))
+    def forward(self, x: torch.Tensor, dropout_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: (B, W, J, F) or (B, in_dim) → (B, out_dim) logits.
+
+        In training mode BN uses (and updates) batch statistics, and dropout
+        keeps the True entries of ``dropout_mask`` (B, 128), or of a mask
+        drawn from ``generator``; one of the two is required.
+        """
+        h = x.reshape(x.shape[0], -1)
+        if not self.training:
+            return self.model(h)
+        for layer in self.model:
+            if isinstance(layer, nn.BatchNorm1d):
+                h = _batch_norm_train(layer, h)
+            elif isinstance(layer, nn.Dropout):
+                if dropout_mask is None:
+                    if generator is None:
+                        raise ValueError("training mode needs a dropout_mask or a generator")
+                    dropout_mask = dropout_keep_mask(h.shape, generator, h.device)
+                keep = 1.0 - layer.p
+                h = torch.where(dropout_mask, h / keep, 0.0)
+            else:
+                h = layer(h)
+        return h
 
     def linears(self) -> List[nn.Linear]:
         return [self.model[i] for i in LINEAR_IDX]
 
     def batchnorms(self) -> List[nn.BatchNorm1d]:
         return [self.model[i] for i in BN_IDX]
+
+
+def _batch_norm_train(bn: nn.BatchNorm1d, h: torch.Tensor) -> torch.Tensor:
+    """Train-mode BN with ``chd_tpu``'s statistics; updates ``bn``'s buffers."""
+    n = h.shape[0]
+    mean = h.mean(dim=0)
+    var = h.var(dim=0, unbiased=False)
+    with torch.no_grad():
+        m = BN_MOMENTUM
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * (var * n / max(n - 1, 1)))
+        bn.num_batches_tracked.add_(1)
+    return (h - mean) * torch.rsqrt(var + BN_EPS) * bn.weight + bn.bias
+
+
+def dropout_keep_mask(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """A Bernoulli(1 - DROPOUT_RATE) keep mask drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - DROPOUT_RATE
 
 
 def init(cfg: ModelConfig, generator: torch.Generator) -> ContactMLP:

@@ -8,10 +8,14 @@ Three sources, all ending in the same module:
   ``state.bn0.mean``, ...);
 - ``chd_tpu``'s (params, state) pytrees as numpy arrays (``from_jax_params``),
   the carry-over the tests use to hand both packages the same weights.
+
+``to_jax_params`` and ``save_npz`` go the other way: the ``.npz`` they write
+is the one ``chd_tpu``'s ``load_npz`` reads, so weights trained by either
+package run in the other.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +56,41 @@ def from_jax_params(params: Dict, state: Dict) -> ContactMLP:
     return from_state_dict({k: np.array(v, np.float32) for k, v in sd.items()})
 
 
+def to_jax_params(model: ContactMLP) -> Tuple[Dict, Dict]:
+    """``ContactMLP`` → ``chd_tpu``'s (params, state) pytrees of float32
+    numpy arrays (copies, on the host)."""
+    def arr(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    params: Dict = {}
+    state: Dict = {}
+    for i, lin in enumerate(model.linears()):
+        params[f"linear{i}"] = {"w": arr(lin.weight), "b": arr(lin.bias)}
+    for i, bn in enumerate(model.batchnorms()):
+        params[f"bn{i}"] = {"scale": arr(bn.weight), "bias": arr(bn.bias)}
+        state[f"bn{i}"] = {"mean": arr(bn.running_mean), "var": arr(bn.running_var)}
+    return params, state
+
+
+def save_npz(path: str, model: ContactMLP) -> None:
+    """The ``params.<module>.<leaf>`` / ``state.<module>.<leaf>`` ``.npz`` of
+    ``chd_tpu``'s ``save_npz``."""
+    flat = {}
+    for scope, tree in zip(("params", "state"), to_jax_params(model)):
+        for mod, leaves in tree.items():
+            for leaf, v in leaves.items():
+                flat[f"{scope}.{mod}.{leaf}"] = v
+    np.savez(path, **flat)
+
+
 def load_pth(path: str) -> ContactMLP:
     """A reference ``.pth`` checkpoint (a ``state_dict``) → ``ContactMLP``."""
     return from_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def load_weights(path: str) -> ContactMLP:
+    """A ``.pth`` reference checkpoint, or else a ``chd_tpu`` ``.npz``."""
+    return load_pth(path) if path.endswith(".pth") else load_npz(path)
 
 
 def load_npz(path: str) -> ContactMLP:

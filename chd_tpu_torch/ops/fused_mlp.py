@@ -5,10 +5,11 @@ kernel that runs the whole folded MLP per 256-row batch tile with every weight
 resident in VMEM. ``csrc/fused_mlp.cu`` runs layers 0-2 on the H100's tensor
 cores in chd_tpu's ``precision="high"``: a 3-pass bf16 split with f32 sums
 (``fused_mlp_split_plain`` is the same arithmetic in plain torch), and layers
-3-4 in f32. A block keeps 64 rows' split activations in shared memory and
-streams the split weights from L2 through a ring of asynchronous copies in
-the layout of ``pack_weights``, which ``MlpLayers`` builds once (see the
-source).
+3-4 in f32. A block keeps 64 rows' split activations in shared memory (a
+first layer wider than 432, the ``full`` joint set, a 128-input slab at a
+time) and streams the split weights from L2 through a ring of asynchronous
+copies in the layout of ``pack_weights``, which ``MlpLayers`` builds once
+(see the source).
 
 The kernel reads its first-layer rows through strides: row (g, n) of the
 batch is ``x[g, n * row_stride : n * row_stride + width]`` of a contiguous
@@ -35,7 +36,7 @@ from ..utils import build
 N_LAYERS = 5
 SPLIT_LAYERS = 3  # layers 0-2 run in the 3-pass bf16 split, 3-4 in f32
 CHUNK = 64        # h1 columns per chunk of the fused layers 0 and 1
-D0_MAX = 432      # widest first layer whose split rows fit in shared memory
+D0_MAX = 768      # six layer-0 tiles; the widest joint set, ``full``, is 675
 D5_MAX = 32
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]

@@ -5,6 +5,8 @@ chd_tpu/ops/windows.py).
 ``use_conv=False`` path). ``layer1_conv_kernel`` folds featurization and the
 MLP's first layer into one temporal-conv weight, which ``ops.fused_mlp`` reads
 as an implicit im2col over the raw frames (the default path).
+``root_normalize_windows`` is the per-window form that the dataset's window
+sampling (``contact.data``) uses.
 """
 from __future__ import annotations
 
@@ -14,6 +16,17 @@ import torch
 def num_windows(num_frames: int, window_size: int) -> int:
     """Overlapping windows: every frame except the edges is a target frame."""
     return num_frames - 2 * (window_size // 2)
+
+
+def root_normalize_windows(win: torch.Tensor, root_joint: int) -> torch.Tensor:
+    """(N, W, J, C >= 2) windows with every joint's x/y relative to the root
+    of the target (middle) frame, whose own root slot keeps that absolute
+    root position; channels past x/y untouched."""
+    mid = win.shape[1] // 2
+    tgt_root = win[:, mid, root_joint, :2]  # (N, 2)
+    xy = win[..., :2] - tgt_root[:, None, None, :]
+    xy[:, mid, root_joint, :] = tgt_root
+    return torch.cat([xy, win[..., 2:]], dim=-1)
 
 
 def featurize_batch(x: torch.Tensor, window_size: int, root_in_subset: int,

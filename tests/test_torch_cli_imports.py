@@ -3,6 +3,7 @@ computes: equal contacts on every frame whose label survives a ±1e-3 move of
 the 0.5 threshold (float32 sums run in different orders)."""
 import json
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -10,6 +11,7 @@ import jax
 import numpy as np
 import torch
 
+import chd_tpu_torch
 from chd_tpu.contact import infer as jax_infer
 from chd_tpu.models import contact_mlp as jax_mlp
 from chd_tpu.models import torch_convert as jax_convert
@@ -22,9 +24,12 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import chd_tpu_torch.contact.infer, chd_tpu_torch.pipeline.cli, "
-            "chd_tpu_torch.ops.fused_mlp; print(sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith('jax.')))")
+    """Every module of the port loads without jax or optax."""
+    modules = sorted(m.name for m in pkgutil.walk_packages(chd_tpu_torch.__path__, "chd_tpu_torch.")
+                     if not m.name.endswith(".__main__"))
+    assert "chd_tpu_torch.contact.train" in modules and "chd_tpu_torch.utils.checkpoint" in modules
+    code = (f"import sys; import {', '.join(modules)}; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'optax')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
                          text=True, timeout=300, check=True)
     assert out.stdout.strip() == "[]", out.stdout

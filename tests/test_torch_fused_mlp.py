@@ -103,7 +103,7 @@ def _conv_case(joint_set):
     return want, logits
 
 
-@pytest.mark.parametrize("joint_set", ["lower", "lower_ankles"])
+@pytest.mark.parametrize("joint_set", ["lower", "lower_ankles", "full"])
 def test_strided_rows_match_jax_conv_path(joint_set):
     """Conv mode: the kernel's strided first-layer rows over the preprocessed
     frames, with layer1_conv_kernel weights, equal chd_tpu's temporal conv
@@ -204,7 +204,22 @@ def test_split_emulation_matches_pallas_kernel(weights, B):
     np.testing.assert_allclose(got.numpy().reshape(B, P, 4), want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("joint_set", ["lower", "lower_ankles"])
+@pytest.mark.parametrize("B", [7, 65])
+def test_split_emulation_matches_pallas_kernel_at_full_width(B):
+    """The widest first layer, the full joint set's 9 x 25 x 3 = 675, which
+    the kernel stages in 128-input slabs: its arithmetic against chd_tpu's
+    Pallas kernel in interpret mode."""
+    params, state = random_params(np.random.default_rng(6), in_dim=675)
+    jf = jax_mlp.fold_batchnorm(params, state)
+    x = np.random.default_rng(B).normal(size=(B, 675)).astype(np.float32)
+    want = np.asarray(pallas_fused_mlp(jf, jnp.asarray(x), P, interpret=True))
+    layers = _layers(_folded(params, state))
+    for mlp in (fused_mlp_split_plain, fused_mlp):
+        got = mlp(layers, torch.from_numpy(x), 675, 675)
+        np.testing.assert_allclose(got.numpy().reshape(B, P, 4), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("joint_set", ["lower", "lower_ankles", "full"])
 def test_split_emulation_matches_jax_conv_path(joint_set):
     """The kernel's arithmetic on strided conv-mode rows against chd_tpu's
     temporal conv followed by the folded tail."""
@@ -254,7 +269,7 @@ def _unswizzle(half, rows, row_bits):
     return t[r, c ^ row_bits(r)].reshape(rows, -1)
 
 
-@pytest.mark.parametrize("d0", [351, 243, 216])
+@pytest.mark.parametrize("d0", [351, 243, 216, 675])  # 675: the full joint set
 def test_pack_weights_is_the_kernels_tile_stream(d0):
     """Walking the packed stream in the kernel's order (per 64-column h1
     chunk: layer 0's 64 x 128 tiles along k, then layer 1's 512 x 16 tiles

@@ -1,7 +1,7 @@
 """The fused-MLP CUDA kernel against its plain PyTorch version, on the card.
 
-Every test here needs a CUDA card and skips without one. The file imports no
-JAX, so it also runs where only the port is installed:
+Every test here needs a CUDA card (marker ``cuda``) and skips without one.
+The file imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fused_mlp_cuda.py
 
@@ -18,10 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from chd_tpu.characters.defs import OP_JOINT_SUBSETS
 from chd_tpu_torch.contact import infer
 from chd_tpu_torch.models import contact_mlp
-from chd_tpu_torch.ops.fused_mlp import (MlpLayers, fused_mlp, fused_mlp_plain,
+from chd_tpu_torch.ops import gapfill
+from chd_tpu_torch.ops.fused_mlp import (D0_MAX, MlpLayers, fused_mlp, fused_mlp_plain,
                                          fused_mlp_split_plain)
+
+pytestmark = pytest.mark.cuda
 
 ATOL, RTOL = 2e-4, 1e-4
 SPLIT_ATOL, SPLIT_RTOL = 5e-5, 1e-5
@@ -89,8 +93,57 @@ def test_wrapper_takes_only_layers_that_keep_their_packing(model):
     assert layers.packed() is pack
 
 
+@pytest.mark.parametrize("use_conv", [True, False])
+@pytest.mark.parametrize("joint_set", sorted(OP_JOINT_SUBSETS))
+def test_every_joint_set(joint_set, use_conv):
+    """Each joint set's first-layer rows as the detector hands them to the
+    kernel, strided (conv mode) or dense, up to full's 675 inputs, which
+    the kernel stages in slabs: against the plain version and the split
+    emulation, and each video's rows bitwise the same alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cfg = contact_mlp.ModelConfig(num_joints=len(OP_JOINT_SUBSETS[joint_set]))
+    model = contact_mlp.init(cfg, torch.Generator().manual_seed(1)).eval()
+    det = infer.ContactDetector(model, device="cuda", joint_set=joint_set, use_conv=use_conv)
+    rng = np.random.default_rng(4)
+    kp = np.empty((5, 70, 25, 3), np.float32)
+    kp[..., 0] = rng.uniform(200, 1100, size=kp.shape[:3])
+    kp[..., 1] = rng.uniform(100, 650, size=kp.shape[:3])
+    kp[..., 2] = rng.uniform(0.0, 1.0, size=kp.shape[:3])
+    joints, root, appended = infer.subset_joints(det.kw["joint_subset"])
+    x = gapfill.preprocess_keypoints(torch.from_numpy(kp).cuda()[:, :, joints], 0.2, 200.0)
+    layers, rows, width, stride = infer.mlp_logits(
+        x, det.layers, window_size=9, root_in_subset=root, root_appended=appended,
+        use_confidence=True, use_conv=use_conv, mlp=lambda *a: a)
+    assert width == (9 * len(joints) * 3 if use_conv else cfg.in_dim)
+    got = fused_mlp(layers, rows, width, stride)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fused_mlp_plain(layers, rows, width, stride),
+                               atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got, fused_mlp_split_plain(layers, rows, width, stride),
+                               atol=SPLIT_ATOL, rtol=SPLIT_RTOL)
+    one = fused_mlp(layers, rows[:1].contiguous(), width, stride)
+    assert torch.equal(one, got[:one.shape[0]])
+
+
+def test_widest_first_layer(model):
+    """D0_MAX inputs, dense, the widest first layer the kernel takes."""
+    rng = np.random.default_rng(5)
+    dims = [D0_MAX, *contact_mlp.HIDDEN, 20]
+    layers = MlpLayers(
+        (torch.from_numpy(rng.normal(0, dims[i] ** -0.5, (dims[i], dims[i + 1]))
+                          .astype(np.float32)).cuda(),
+         torch.from_numpy(rng.normal(0, 0.1, dims[i + 1]).astype(np.float32)).cuda())
+        for i in range(5))
+    x = torch.from_numpy(rng.normal(size=(130, D0_MAX)).astype(np.float32)).cuda()
+    got = fused_mlp(layers, x, D0_MAX, D0_MAX)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fused_mlp_plain(layers, x, D0_MAX, D0_MAX),
+                               atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("dims", [
-    [433, 1024, 512, 128, 32, 20],  # first layer wider than the staged rows
+    [D0_MAX + 1, 1024, 512, 128, 32, 20],  # first layer wider than six layer-0 tiles
     [351, 1024, 256, 128, 32, 20],  # hidden widths other than HIDDEN
     [351, 1024, 512, 128, 32, 33],  # more than 32 outputs
 ])
