@@ -1,0 +1,1 @@
+from .registry import CHARACTERS, HEELED_CHARACTERS, Character, get_character

@@ -85,6 +85,13 @@ COMBINED_SKEL_FOR_SMPL = np.array(
     [0, 1, 7, 13, 2, 8, 14, 3, 9, 15, 6, 12, 16, -1, -1, -1, 22, 25, 23, 26, 24, 27]
 )
 
+# Combined-skeleton feet metadata in skeleton order
+# (character_info_utils.py:194-197).
+COMBINED_FOOT_INDS = np.array([4, 5, 6, 10, 11, 12])
+COMBINED_TOE_INDS = np.array([5, 6, 11, 12])
+COMBINED_ANKLE_INDS = np.array([3, 9])
+COMBINED_EYE_INDS = np.array([18, 20])
+
 # MTC camera intrinsics
 MTC_WIDTH = 1920
 MTC_HEIGHT = 1080

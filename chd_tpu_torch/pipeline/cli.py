@@ -7,6 +7,11 @@ Ported so far:
   into each;
 - ``kinematic``: the kinematic optimization of one video dir, writing
   ``kinematic_results/{final_test.bvh, floor_out.txt, foot_contacts.npy}``;
+- ``retarget``: a combined-skeleton BVH onto a Mixamo character;
+- ``physics``: the physics stage of one video dir, writing
+  ``phys_optim_in_<char>/`` and ``phys_optim_out_<char>/``;
+- ``run``: kinematic, retargeting and physics for every video dir of a
+  data dir;
 - ``train-contacts``: contact-model training on the synthetic dataset,
   writing ``contact_weights.npz``, ``_BEST.npz`` and ``_FINAL.npz``;
 - ``eval-contacts``: its evaluation, writing ``eval_results.json`` and, with
@@ -81,6 +86,27 @@ def main(argv=None):
     _add_device_arg(p)
     _add_config_args(p)
 
+    p = sub.add_parser("retarget", help="retarget final_test.bvh onto a character")
+    p.add_argument("--src-bvh", required=True)
+    p.add_argument("--out-bvh", required=True)
+    p.add_argument("--character", default="ybot")
+    p.add_argument("--char-bvh", required=True, help="character template BVH")
+    _add_device_arg(p)
+
+    p = sub.add_parser("physics", help="physics optimization for one video dir")
+    p.add_argument("--video-dir", required=True)
+    p.add_argument("--character", default="ybot")
+    _add_device_arg(p)
+    _add_config_args(p)
+
+    p = sub.add_parser("run", help="full pipeline over a data dir of video dirs")
+    p.add_argument("--data", required=True)
+    p.add_argument("--character", default="ybot")
+    p.add_argument("--skel-path", dest="skel_path", required=True)
+    p.add_argument("--char-bvh", help="character template BVH (non-combined)")
+    _add_device_arg(p)
+    _add_config_args(p)
+
     p = sub.add_parser("train-contacts", help="train the contact model")
     p.add_argument("--data", required=True)
     p.add_argument("--out", required=True)
@@ -119,6 +145,31 @@ def main(argv=None):
         from .run import run_kinematic_stage
 
         print(run_kinematic_stage(args.video_dir, _load_config(args), device=device))
+        return 0
+
+    if args.cmd == "retarget":
+        from ..core import bvh
+        from ..retarget.mixamo import retarget
+
+        src, _, _ = bvh.load(args.src_bvh)
+        retarget(src, args.character, args.char_bvh, out_bvh=args.out_bvh, device=device)
+        print(args.out_bvh)
+        return 0
+
+    if args.cmd == "physics":
+        from .run import run_physics_stage
+
+        print(json.dumps(run_physics_stage(args.video_dir, _load_config(args), device=device)))
+        return 0
+
+    if args.cmd == "run":
+        from .run import run_pipeline
+
+        cfg = _load_config(args)
+        for vd in _video_dirs(args.data):
+            print(f"=== {vd} ===")
+            res = run_pipeline(vd, cfg, char_skel_bvh=args.char_bvh, device=device)
+            print(json.dumps(res["stats"]))
         return 0
 
     from ..contact.data import ContactDataset

@@ -1,5 +1,5 @@
-"""The pipeline's stages (port of chd_tpu/pipeline/run.py; the kinematic
-stage so far).
+"""The pipeline's stages (port of chd_tpu/pipeline/run.py): kinematic,
+retargeting, physics, and ``run_pipeline`` chaining them for one video dir.
 
 Same on-disk layout as ``chd_tpu``, so any stage of either package can run
 on the other's files:
@@ -9,7 +9,15 @@ on the other's files:
     tracked_results.json        (input: MTC fit)
     foot_contacts.npy           (input: contact detection)
     kinematic_results/
-      final_test.bvh, floor_out.txt, foot_contacts.npy (refined)
+      final_test.bvh, floor_out.txt, foot_contacts.npy (refined),
+      <char>_out.bvh
+    phys_optim_in_<char>/       (skel/motion/terrain/contact_info.txt)
+    phys_optim_out_<char>/
+      sol_out_no_dynamics.txt, sol_out_dynamics.txt, sol_out_durations.txt,
+      success_log.txt, <video>_<char>_{no_dynamics,dynamics,durations}.bvh
+
+Every stage runs on ``device`` (default ``cuda``; raises where CUDA is
+absent) in ``dtype``.
 
 ``chd_tpu``'s frame-sharded branch for one very long sequence
 (``kinematic.frame_shard_threshold``, over more than one device) waits for
@@ -18,16 +26,29 @@ the multi-card port; here the sequence is solved on one device.
 from __future__ import annotations
 
 import os
+import shutil
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..characters import get_character
 from ..core import bvh
 from ..ingest import openpose, totalcap
 from ..kinematics import trajectory as traj_lib
 from ..kinematics.lm import LMConfig
+from ..parallel import batch as batch_lib
+from ..physics import collocation, towr_io
+from ..physics.apply import apply_results, remove_heel
+from ..physics.prepare import prepare_input
+from ..physics.types import PhysWeights
+from ..retarget.mixamo import retarget
 from ..utils.config import PipelineConfig
+from ..utils.cuda_graph import GraphCache
+from ..utils.device import resolve_device
+from ..utils.log import get_logger, stage_timer
+
+log = get_logger("pipeline")
 
 
 def _skel_path(cfg: PipelineConfig) -> str:
@@ -107,3 +128,133 @@ def run_kinematic_stage(video_dir: str, cfg: PipelineConfig, num_frames: Optiona
         f.write(" ".join(str(v) for v in res.floor_normal) + "\n")
         f.write(" ".join(str(v) for v in res.floor_point))
     return out_dir
+
+
+def run_retarget_stage(video_dir: str, cfg: PipelineConfig, skel_bvh: Optional[str] = None,
+                       device="cuda", dtype=torch.float32) -> str:
+    """final_test.bvh → <character>_out.bvh (run_phys_mocap.py:117-133)."""
+    kin = os.path.join(video_dir, "kinematic_results")
+    final = os.path.join(kin, "final_test.bvh")
+    out = os.path.join(kin, f"{cfg.character}_out.bvh")
+    device = resolve_device(device)
+    if cfg.character == "combined":
+        shutil.copyfile(final, out)
+        return out
+    if skel_bvh is None:
+        raise FileNotFoundError(
+            f"character template BVH required to retarget to {cfg.character!r}"
+        )
+    src, names, _ = bvh.load(final)
+    retarget(src, cfg.character, skel_bvh, out_bvh=out, device=device, dtype=dtype)
+    return out
+
+
+def run_physics_stage(video_dir: str, cfg: PipelineConfig, video_name: Optional[str] = None,
+                      device="cuda", dtype=torch.float32,
+                      graphs: Optional[GraphCache] = None) -> dict:
+    """prepare → solve → artifacts (run_phys_mocap.py:136-201)."""
+    device = resolve_device(device)
+    kin = os.path.join(video_dir, "kinematic_results")
+    char = cfg.character
+    char_bvh = os.path.join(kin, f"{char}_out.bvh")
+    in_dir = os.path.join(video_dir, f"phys_optim_in_{char}")
+    out_dir = os.path.join(video_dir, f"phys_optim_out_{char}")
+    os.makedirs(out_dir, exist_ok=True)
+    video_name = video_name or os.path.basename(os.path.abspath(video_dir))
+
+    anim, names, frametime = bvh.load(char_bvh)
+    with open(os.path.join(kin, "floor_out.txt")) as f:
+        normal = np.array([float(x) for x in f.readline().split()])
+        point = np.array([float(x) for x in f.readline().split()])
+    contacts = np.load(os.path.join(kin, "foot_contacts.npy"))
+
+    fps = cfg.fps
+    if cfg.probe_fps:
+        from .probe import probe_fps
+
+        fps = probe_fps(video_dir, default=cfg.fps)
+
+    F = min(anim.num_frames, contacts.shape[0])
+    if anim.num_frames != contacts.shape[0]:
+        log.warning(
+            "frame-count mismatch in %s: BVH has %d frames, foot_contacts.npy "
+            "has %d (at %.0f fps); truncating to %d",
+            video_dir, anim.num_frames, contacts.shape[0], fps, F,
+        )
+    phys = prepare_input(
+        anim.slice_frames(0, F), normal, point, contacts[:F], char,
+        start_idx=0, end_idx=F, dt=1.0 / fps, out_dir=in_dir,
+    )
+
+    pw = PhysWeights(
+        cfg.physics.w_com_lin, cfg.physics.w_com_ang, cfg.physics.w_ee,
+        cfg.physics.w_smooth, cfg.physics.w_dur,
+    )
+    scfg = collocation.SolveConfig(
+        al_iters_fit=cfg.physics.al_iters_fit,
+        al_iters_dyn=cfg.physics.al_iters_dyn,
+        al_iters_height=cfg.physics.al_iters_height,
+        al_iters_durations=cfg.physics.al_iters_durations,
+        optimize_durations=cfg.physics.optimize_durations,
+        lm=LMConfig(max_iters=cfg.physics.lm_iters, cg_iters=cfg.physics.cg_iters,
+                    init_lambda=1e-2),
+    )
+    durations_ok = False
+    if cfg.physics.optimize_durations:
+        # the whole staged solve incl. stage 3/4 on a batch of one, with one
+        # host sync at its end
+        batched, seq_lens = batch_lib.pad_phys_inputs([phys], device=device, dtype=dtype)
+        rf_b, rd_b, res3_b, stats3_b, ok_b = batch_lib.solve_physics_full_batch(
+            batched, pw, scfg, graphs=graphs)
+        res_fit = batch_lib.unbatch_results(rf_b, seq_lens)[0]
+        res_dyn = batch_lib.unbatch_results(rd_b, seq_lens)[0]
+        x2 = collocation.join_vars(rd_b.base_lin, rd_b.base_ang, rd_b.ee_pos, rd_b.ee_force)
+        stats = {k: float(v[0]) for k, v in collocation.violation_stats(x2, batched).items()}
+        durations_ok = bool(ok_b[0])
+        res3 = batch_lib.unbatch_results(res3_b, seq_lens)[0]
+        stats3 = {k: float(v[0]) for k, v in stats3_b.items()}
+    else:
+        res_fit, res_dyn, stats = collocation.solve_physics(phys, pw, scfg, device=device,
+                                                            dtype=dtype, graphs=graphs)
+
+    towr_io.save_solution(res_fit, os.path.join(out_dir, "sol_out_no_dynamics.txt"))
+    towr_io.save_solution(res_dyn, os.path.join(out_dir, "sol_out_dynamics.txt"))
+    dynamics_ok = (
+        stats["dyn"] < cfg.physics.dyn_tol
+        and stats["terrain"] < cfg.physics.kin_tol
+        and stats["height"] < cfg.physics.kin_tol
+    )
+
+    # STAGE 3 result selection: on failure keep the stage-2 result with
+    # durations frozen (the reference's stage-4 fallback,
+    # phys_optim.cpp:713-749)
+    res_durations = res_dyn
+    if cfg.physics.optimize_durations and durations_ok:
+        res_durations = res3
+        stats = {**stats, **{f"dur_{k}": v for k, v in stats3.items()}}
+    durations_ok = durations_ok or dynamics_ok  # fallback result converged
+    towr_io.save_solution(res_durations, os.path.join(out_dir, "sol_out_durations.txt"))
+    towr_io.save_success_log(os.path.join(out_dir, "success_log.txt"), dynamics_ok, durations_ok)
+
+    # BVH exports of each result (towr_utils.py --viz branch :953-975)
+    heeled = get_character(char).has_heel
+    for label in ["no_dynamics", "dynamics", "durations"]:
+        loaded = towr_io.load_results(os.path.join(out_dir, f"sol_out_{label}.txt"))
+        applied, _, _ = apply_results(loaded, anim.slice_frames(0, F), char, device=device,
+                                      dtype=dtype)
+        bvh.save(
+            os.path.join(out_dir, f"{video_name}_{char}_{label}.bvh"),
+            applied if heeled else remove_heel(applied), names, frametime=frametime,
+        )
+    return {"stats": stats, "dynamics_ok": dynamics_ok, "out_dir": out_dir}
+
+
+def run_pipeline(video_dir: str, cfg: PipelineConfig, char_skel_bvh: Optional[str] = None,
+                 device="cuda", dtype=torch.float32) -> dict:
+    """Full per-video pipeline (run_phys_mocap.py main loop)."""
+    with stage_timer(f"kinematic [{video_dir}]", log):
+        run_kinematic_stage(video_dir, cfg, device=device, dtype=dtype)
+    with stage_timer(f"retarget → {cfg.character}", log):
+        run_retarget_stage(video_dir, cfg, char_skel_bvh, device=device, dtype=dtype)
+    with stage_timer("physics", log):
+        return run_physics_stage(video_dir, cfg, device=device, dtype=dtype)

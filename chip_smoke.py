@@ -110,6 +110,41 @@ PyTorch, replayed as CUDA graphs):
     the same contacts, floor normals cos >= 0.9999, BVH joints within
     0.05 cm.
 
+Retargeting, the staged physics solve and the whole pipeline (no kernel of
+their own either: collocation, SRBD and durations are plain PyTorch, the LM
+steps replayed as CUDA graphs):
+
+17. building blocks on the card against the port on the CPU, float32, on a
+    walking and a hopping clip of 100 frames with seeded variables and
+    multipliers: ``dynamic_violation``, every constraint block, the AL
+    residual of each of the five stage graphs (FIT, DYN, DYN_H, stage 3,
+    stage 4), ``soft_contact`` and one JᵀJ·v product, each within
+    ``BLOCK_REL`` of its largest value; the same blocks with their matmul
+    inputs rounded to TF32 must break that bound;
+18. the FIT stage (2 AL iterations of LM 25:50) on
+    ``tests/fixtures/phys_fit_scipy_f20_seed0.npz``'s clip with the gates of
+    ``tests/test_goldens.py``: every FIT constraint <= max(golden, 1e-3),
+    the FIT cost <= 1.001 x the golden's and < 0.05, COM and feet within
+    2 cm of the data;
+19. the realistic batch (the slice's main path): ``solve_physics_full_batch``
+    on 32 x ``walking_input(100, seed=i)``, the default ``SolveConfig`` and
+    ``PhysWeights``, as CUDA graphs: a capturing call, a timed call
+    (seconds, sequences/hour), the same graphs inside
+    ``set_sync_debug_mode("error")`` with each stage's time by CUDA events
+    (FIT, DYN, HEIGHT, stage 3, stage 4), bitwise the call's results; the
+    ``durations_ok`` rate and the largest dynamics violation;
+    ``tests/test_physics_scoreboard.py``'s gates on every sequence; 3 LM
+    steps eager and replayed, bitwise equal; one eager LM step profiled;
+    then a small ragged batch (24 and 20 frames), card vs CPU: float64 end
+    to end, float32 stage by stage from the card's input, with the frames
+    whose rasterized contact differs;
+20. the ``run`` CLI on the card on a synthetic 12-frame video dir
+    (kinematic, retargeting to the 67-joint ybot template of
+    ``tests/fixtures/prepare_input/ybot``, physics at small budgets) and
+    on the CPU: every artifact of the pipeline's layout, a success log
+    that parses, three 67-joint BVHs, solutions and BVH joints within
+    ``RUN_SOL_MAX_D`` m and ``RUN_BVH_MAX_D`` cm of the CPU's.
+
 Then it prints one JSON line on the kernels, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line, and so does a machine without CUDA.
@@ -169,6 +204,26 @@ EAGER_LM_STEPS = 3               # [15]: LM steps run eager and replayed, bitwis
 SMALL_F64_MAX_D, SMALL_IK_MAX_D, SMALL_LM_MAX_D, FLOOR_COS_GAP = 1e-5, 1e-3, 5e-2, 1e-9
 SPREAD_X, SPREAD_ULPS = 3.0, (1, -1)
 SMALL_COS_MIN, CLI_MAX_D = 0.9999, 0.05
+# The physics stage: [19]'s realistic batch is bench.py's physics shape.
+PHYS_B, PHYS_F = 32, 100
+PHYS_GOLDEN = os.path.join(REPO, "tests", "fixtures", "phys_fit_scipy_f20_seed0.npz")
+YBOT_TEMPLATE = os.path.join(REPO, "tests", "fixtures", "prepare_input", "ybot", "motion.bvh")
+# [17] card vs CPU in float32: max |d| over max(1, max |CPU|) of each block
+BLOCK_REL = 1e-5
+# [19]'s small batch, card vs CPU: float64 end to end (m). In float32, stage
+# by stage from the card's input, each quantity (positions m, angles rad,
+# forces N, durations s) within SPREAD_X times the CPU's own spread under a
+# one-ulp change of that stage's input (SPREAD_ULPS), or SMALL_PHYS_F32_FLOOR
+# where that spread is smaller: 3 LM steps from zero forces part by up to
+# 8e-3 m and 5 N on the CPU alone in the DYN stage.
+SMALL_PHYS_F64_MAX_D, SMALL_PHYS_F32_FLOOR = 1e-6, 1e-5
+# [20]: the run CLI's budget, and its card run against its CPU run:
+# solutions (m) and BVH joints (cm)
+RUN_BUDGET = {"kinematic.ik_iterations": 20, "kinematic.lm_iters": 8, "kinematic.cg_iters": 30,
+              "physics.al_iters_fit": 1, "physics.al_iters_dyn": 1,
+              "physics.al_iters_height": 1, "physics.al_iters_durations": 1,
+              "physics.lm_iters": 3, "physics.cg_iters": 10}
+RUN_SOL_MAX_D, RUN_BVH_MAX_D = 0.05, 2.0
 
 
 def fail(msg: str) -> None:
@@ -1234,6 +1289,510 @@ def kinematic_phases(torch, dev, smi: str) -> None:
             fail("[16] the kinematic CLI on the card disagrees with the CPU or missed a file")
 
 
+def phys_fit_golden_gates(device, graphs=None) -> dict:
+    """The port's FIT stage (the default budget: 2 AL iterations of LM 25:50)
+    on walking_input(20, seed=0) in float32, and what the gates of
+    tests/test_goldens.py::test_physics_fit_matches_scipy_golden read: each
+    FIT constraint's violation beside the scipy golden's, the FIT cost of
+    both solutions, and the largest COM and foot distances to the data (m)."""
+    import torch
+
+    from chd_tpu_torch.parallel import batch as batch_lib
+    from chd_tpu_torch.physics import collocation as co
+    from chd_tpu_torch.physics.synth import walking_input
+    from chd_tpu_torch.utils.precision import full_f32
+
+    g = np.load(PHYS_GOLDEN)
+    if not bool(g["finished"]):
+        fail("the FIT golden was saved from an unfinished solve")
+    F = int(g["frames"])
+    pb, _ = batch_lib.pad_phys_inputs([walking_input(F, seed=0)], device=device)
+    cfg = co.SolveConfig()
+    x = co.join_vars(pb.base_lin, pb.base_ang, pb.ee_pos, torch.zeros_like(pb.ee_pos))
+    with full_f32():
+        x, _ = co.run_stage(x, pb, co.init_multipliers(pb), co.FIT_COST, co.FIT_RHO,
+                            cfg.al_iters_fit, cfg.lm, batch_lib._masks(F, pb, graphs), graphs)
+        x_gold = torch.as_tensor(g["x"], dtype=torch.float32, device=pb.dt.device)[None]
+
+        def cost(v):
+            r = co.cost_residuals(v, pb, co.FIT_COST)
+            return 0.5 * float((r.double() * r.double()).sum())
+
+        ours, gold = co.violation_stats(x, pb), co.violation_stats(x_gold, pb)
+        res = co._to_result(x, pb)
+        return {
+            "violations": {k: (float(ours[k][0]), float(gold[k][0]))
+                           for k in ("leg", "heel", "terrain", "slip", "height")},
+            "cost": cost(x), "golden_cost": cost(x_gold),
+            "com": float((res.base_lin - pb.base_lin).norm(dim=-1).max()),
+            "feet": float((res.ee_pos - pb.ee_pos).norm(dim=-1).max()),
+        }
+
+
+def phys_golden_gates_pass(gates: dict) -> bool:
+    return (all(ours <= max(gold, 1e-3) for ours, gold in gates["violations"].values())
+            and gates["cost"] <= gates["golden_cost"] * 1.001 and gates["cost"] < 0.05
+            and gates["com"] < 0.02 and gates["feet"] < 0.02)
+
+
+def phys_scoreboard(phys, final) -> dict:
+    """tests/test_physics_scoreboard.py's readings of one solved sequence
+    (host arrays of one problem): COM and stance-foot distances to the input
+    (m), the net impulse's residual against the momentum change (a fraction
+    of the clip's gravity impulse), the mean interior Newton–Euler
+    violation, the lowest swing foot (m) and the largest change of a foot's
+    phase count."""
+    import torch
+
+    from chd_tpu_torch.physics import srbd
+    from chd_tpu_torch.physics.types import GRAVITY
+
+    def arr(a):
+        return np.asarray(a, np.float64)
+
+    base, ee, f = arr(final.base_lin), arr(final.ee_pos), arr(final.ee_force)
+    c, dt, m = arr(phys.contact), float(phys.dt), float(phys.mass)
+    F = base.shape[0]
+    com = np.linalg.norm(base - arr(phys.base_lin), axis=-1)
+    feet = np.linalg.norm((ee - arr(phys.ee_pos)) * c[..., None], axis=-1)
+    grf = f.sum(axis=0)
+    v0, v1 = (base[2] - base[0]) / (2 * dt), (base[-1] - base[-3]) / (2 * dt)
+    impulse = (grf[1:-1] + np.array([0.0, 0.0, -GRAVITY]) * m).sum(axis=0) * dt
+    imp = np.linalg.norm(impulse - m * (v1 - v0)) / (m * GRAVITY * (F - 2) * dt)
+
+    def t(a):
+        return torch.as_tensor(arr(a))[None]
+
+    viol = srbd.dynamic_violation(t(base), t(final.base_ang), t(ee),
+                                  t(f / np.maximum(c[..., None], 1e-9)), t(c), t(phys.inertia),
+                                  t(phys.mass), -t(phys.floor_normal), t(phys.dt))
+    swing = c < 0.5
+    stance = np.abs(f).sum(-1) > 1e-6
+    phases = max(abs(int(np.abs(np.diff(c[e])).sum())
+                     - int(np.abs(np.diff(stance[e].astype(float))).sum())) for e in range(4))
+    return {"com_mean": com.mean(), "com_max": com.max(), "feet_mean": feet.sum() / max(c.sum(), 1),
+            "feet_max": feet.max(), "impulse": imp,
+            "newton_euler": float(viol[0, 2:-2].abs().mean()),
+            "clearance": ee[..., 2][swing].min() if swing.any() else np.inf, "phases": phases}
+
+
+def phys_scoreboard_pass(s: dict) -> bool:
+    return (s["com_mean"] < 0.05 and s["com_max"] < 0.15 and s["feet_mean"] < 0.05
+            and s["feet_max"] < 0.10 and s["impulse"] < 0.05 and s["newton_euler"] < 10.0
+            and s["clearance"] > -0.02 and s["phases"] <= 2)
+
+
+def physics_phases(torch, dev, smi: str) -> None:
+    """Phases [17]-[20]: retargeting, the staged physics solve and the whole
+    per-video pipeline on the card."""
+    from chd_tpu_torch.core import bvh, fk
+    from chd_tpu_torch.kinematics import lm as lm_lib
+    from chd_tpu_torch.parallel import batch as batch_lib
+    from chd_tpu_torch.physics import collocation as co
+    from chd_tpu_torch.physics import durations as dur
+    from chd_tpu_torch.physics import srbd, towr_io
+    from chd_tpu_torch.physics.synth import hopping_input, walking_input
+    from chd_tpu_torch.physics.types import PhysWeights
+    from chd_tpu_torch.pipeline import cli
+    from chd_tpu_torch.utils.cuda_graph import GraphCache
+    from chd_tpu_torch.utils.precision import full_f32
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    f32 = torch.float32
+    weights, cfg = PhysWeights(), co.SolveConfig()
+    dyn_cost = co.dyn_cost_for(weights)
+    stage4_cost = co.dyn_cost_for(weights, accel=0.0)
+
+    # -- 17. building blocks, card vs CPU --------------------------------
+    clips = [walking_input(PHYS_F, seed=0), hopping_input(PHYS_F, seed=0)]
+    pc, _ = batch_lib.pad_phys_inputs(clips, device="cpu", dtype=f32)
+    pd, _ = batch_lib.pad_phys_inputs(clips, device=dev, dtype=f32)
+    rng = np.random.default_rng(17)
+    B2 = len(clips)
+    x = co.join_vars(pc.base_lin, pc.base_ang, pc.ee_pos, torch.zeros_like(pc.ee_pos))
+    x = (x + torch.from_numpy(rng.normal(0, 0.02, x.shape).astype(np.float32))).reshape(
+        B2, PHYS_F, co.DOF)
+    x[..., 18:] = torch.from_numpy((rng.normal(0, 1.0, (B2, PHYS_F, 4, 3))
+                                    * [60, 60, 250]).astype(np.float32)).reshape(B2, PHYS_F, 12)
+    x = x.reshape(B2, -1)
+    lams = co.Constraints(*(torch.from_numpy(rng.normal(0, 0.5, v.shape).astype(np.float32))
+                            for v in co.init_multipliers(pc)))
+    spec_c = batch_lib.pad_duration_specs(pc)
+    d = spec_c.durations + torch.from_numpy(
+        rng.normal(0, 0.01, spec_c.durations.shape).astype(np.float32)) * spec_c.phase_mask
+    v = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+
+    def on(device):
+        """Phase 17's inputs on ``device``: (phys, x, lams, spec, d, v)."""
+        def move(tree):
+            return type(tree)(*(t.to(device) for t in tree))
+        return (pc if device == "cpu" else pd, x.to(device), move(lams), move(spec_c),
+                d.to(device), v.to(device))
+
+    def al(w, rho):
+        fn = co.make_al_residual_fn(w, rho)
+        return lambda p, xx, lm, s, dd, vv: fn(xx, p, lm, w, rho)
+
+    def stage3(p, xx, lm, s, dd, vv):
+        xa = torch.cat([xx, dd.reshape(B2, -1)], dim=-1)
+        return co.make_stage3_residual_fn(stage4_cost, co.DYN_H_RHO)(
+            xa, p, lm, s, stage4_cost, co.DYN_H_RHO, weights.w_dur)
+
+    def jtjv(p, xx, lm, s, dd, vv):
+        """One JᵀJ·v of the DYN_H residual, as lm_step forms it."""
+        fn = co.make_al_residual_fn(dyn_cost, co.DYN_H_RHO)
+        r, vjp_fn = torch.func.vjp(lambda y: fn(y, p, lm, dyn_cost, co.DYN_H_RHO), xx)
+        _, lin = torch.func.vjp(lambda cot: vjp_fn(cot)[0], torch.zeros_like(r))
+        return vjp_fn(lin(vv)[0])[0]
+
+    def violation(p, xx, *_):
+        base_lin, base_ang, ee, force = co.split_vars(xx, PHYS_F)
+        return srbd.dynamic_violation(base_lin, base_ang, ee, force, p.contact, p.inertia,
+                                      p.mass, -p.floor_normal, p.dt)
+
+    cases = {"dynamic_violation": violation}
+    for name in co.Constraints._fields:
+        cases[f"constraints.{name}"] = (lambda n: lambda p, xx, *_: getattr(
+            co.constraints(xx, p), n))(name)
+    cases.update({
+        "AL FIT": al(co.FIT_COST, co.FIT_RHO), "AL DYN": al(dyn_cost, co.DYN_RHO),
+        "AL DYN_H": al(dyn_cost, co.DYN_H_RHO), "AL stage 3": stage3,
+        "AL stage 4": al(stage4_cost, co.DYN_H_RHO),
+        "soft_contact": lambda p, xx, lm, s, dd, vv: dur.soft_contact(dd, s, PHYS_F, p.dt),
+        "JtJ.v (DYN_H)": jtjv,
+    })
+
+    card_in, cpu_in = on(dev), on("cpu")
+    with full_f32():
+        want = {name: fn(*cpu_in) for name, fn in cases.items()}
+
+    def rel_d(name):
+        with full_f32():
+            got = cases[name](*card_in).cpu()
+        return (float((got - want[name]).abs().max())
+                / max(1.0, float(want[name].abs().max())))
+
+    print(f"[17] physics building blocks, card vs CPU in float32 ({B2} clips x {PHYS_F} "
+          f"frames: walking and hopping, seeded variables and multipliers): max|d| / "
+          f"max(1, max|CPU|) <= {BLOCK_REL}")
+    for name in cases:
+        r = rel_d(name)
+        print(f"    {name}: {r:.3e}")
+        if not r <= BLOCK_REL:
+            fail(f"[17] {name}: the card and the CPU differ by {r:.3e} relative")
+    mm = torch.matmul
+    with mock.patch.object(torch, "matmul", lambda a, b: mm(tf32_rounded(a), tf32_rounded(b))):
+        tf32 = {name: rel_d(name) for name in cases}
+    name, r = max(tf32.items(), key=lambda kv: kv[1])
+    print(f"    the card's blocks with their matmul inputs rounded to TF32: largest {r:.3e} "
+          f"({name}); outside the bound: {r > BLOCK_REL}")
+    if not r > BLOCK_REL:
+        fail("[17] the bound does not tell TF32 products from full float32")
+
+    # -- 18. the FIT-stage golden on the card ------------------------------
+    t18, gates = wall(lambda: phys_fit_golden_gates(dev, GraphCache()))
+    viol = ", ".join(f"{k} {a:.2e} (golden {b:.2e})" for k, (a, b) in gates["violations"].items())
+    print(f"[18] FIT-stage golden on the card (F=20, 2 AL x LM 25:50, CUDA graphs): {t18:.2f} s "
+          f"with capture; violations {viol} (each <= max(golden, 1e-3)); FIT cost "
+          f"{gates['cost']:.5f} vs the golden's {gates['golden_cost']:.1f} (<= x1.001 and < "
+          f"0.05); COM {gates['com']:.4f} m, feet {gates['feet']:.4f} m from the data (< 0.02)")
+    if not phys_golden_gates_pass(gates):
+        fail(f"[18] the FIT golden's gates failed on the card: {gates}")
+
+    # -- 19. the realistic batch ------------------------------------------
+    inputs = [walking_input(PHYS_F, seed=i) for i in range(PHYS_B)]
+    pb, lens = batch_lib.pad_phys_inputs(inputs, device=dev)
+    spec = batch_lib.pad_duration_specs(pb)
+    graphs = GraphCache()
+    print(f"[19] solve_physics_full_batch, {PHYS_B} x walking_input({PHYS_F}, seed=i), the default "
+          f"SolveConfig (AL 2/3/3/2 + 3 polish, LM 25:50) and PhysWeights, CUDA graphs; {smi}")
+
+    def call():
+        return batch_lib.solve_physics_full_batch(pb, weights, cfg, spec_b=spec, graphs=graphs)
+
+    t_first, _ = wall(call)
+    t_calls = []
+    for _ in range(2):
+        t, out = wall(call)
+        t_calls.append(t)
+    captures = graphs.captures
+    print(f"    first call {t_first:.3f} s ({captures} captures), then " + ", ".join(
+        f"{t:.3f} s = {PHYS_B / t * 3600:.0f}" for t in t_calls) + " sequences/hour")
+
+    stages = ["fit", "dyn", "height", "stage3", "stage4"]
+    events = []
+
+    def core():
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        events.append(ev0)
+
+        def hook(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append(e)
+
+        with full_f32():
+            rf, rd = batch_lib._staged_core(pb, weights, cfg, graphs, hook)
+            return (rf, rd) + batch_lib.durations_core(pb, rd, spec, weights, cfg, graphs, hook)
+
+    t_core, out3 = wall(lambda: no_sync(core))
+    ms = [events[i].elapsed_time(events[i + 1]) for i in range(len(stages))]
+    same = (all(torch.equal(a, b) for r2, r3 in zip(out[:3], out3[:3]) for a, b in zip(r2, r3))
+            and all(torch.equal(out[3][k], out3[3][k]) for k in out[3])
+            and np.array_equal(out[4], out3[4].cpu().numpy()) and graphs.captures == captures)
+    print(f"    the same graphs inside torch.cuda.set_sync_debug_mode('error') (no host sync): "
+          f"{t_core:.3f} s; by CUDA events " + ", ".join(
+              f"{s} {m:.0f} ms" for s, m in zip(stages, ms))
+          + f"; equal to the call's results, bitwise: {same}")
+    if not same:
+        fail("[19] the staged replay differs from solve_physics_full_batch")
+
+    res_fit, res_dyn, res3, stats, ok = out
+    max_dyn = float(stats["dyn"].max())
+    print(f"    convergence: durations_ok {int(ok.sum())}/{PHYS_B} (rate {ok.mean():.4f}), max "
+          f"dynamics violation {max_dyn:.4e} N")
+    finals = [r3 if k else r2 for r3, r2, k in zip(batch_lib.unbatch_results(res3, lens),
+                                                    batch_lib.unbatch_results(res_dyn, lens), ok)]
+    boards = [phys_scoreboard(p, f) for p, f in zip(inputs, finals)]
+    worst = {k: (min if k == "clearance" else max)(b[k] for b in boards) for k in boards[0]}
+    print("    scoreboard, worst of the sequences: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in worst.items()) + " (COM mean < 0.05 / max < 0.15 m, stance "
+        "feet < 0.05 / < 0.10 m, impulse < 0.05, Newton-Euler < 10, clearance > -0.02 m, "
+        "phase counts within 2)")
+    failed = [i for i, b in enumerate(boards) if not phys_scoreboard_pass(b)]
+    if failed or not all(np.isfinite(_np_res(r)).all() for r in finals):
+        fail(f"[19] the scoreboard's gates failed on sequences {failed}")
+
+    # eager against replayed: 3 LM steps of the DYN_H stage, no host sync
+    masks = batch_lib._masks(PHYS_F, pb, graphs)
+    x_dyn = co.join_vars(res_dyn.base_lin, res_dyn.base_ang, res_dyn.ee_pos, res_dyn.ee_force)
+    lams0 = co.init_multipliers(pb)
+    fn = co.make_al_residual_fn(dyn_cost, co.DYN_H_RHO)
+    args = (pb, lams0, dyn_cost, co.DYN_H_RHO)
+    short = dataclasses.replace(cfg.lm, max_iters=EAGER_LM_STEPS)
+
+    def steps(g):
+        with full_f32():
+            return lm_lib.lm_solve(fn, x_dyn, args, short, masks, g)
+
+    t_eager, eager = wall(lambda: no_sync(lambda: steps(None)))
+    t_rep, rep = wall(lambda: no_sync(lambda: steps(graphs)))
+    same = all(torch.equal(a, b) for a, b in zip(eager, rep)) and graphs.captures == captures
+    print(f"    eager vs replayed, {EAGER_LM_STEPS} LM steps of DYN_H: eager {t_eager * 1e3:.0f} ms, "
+          f"replayed {t_rep * 1e3:.0f} ms; bitwise equal: {same}")
+    if not same:
+        fail("[19] the CUDA-graph replay differs from the eager path")
+
+    # one LM step, eager, under the profiler
+    targs = lm_lib._tensor_floats(args, x_dyn)
+
+    def res_fn(y):
+        return fn(y, *targs)
+
+    lam = torch.full((PHYS_B, 1), cfg.lm.init_lambda, device=dev)
+    with full_f32():
+        c0 = lm_lib._half_sq(res_fn(x_dyn))
+
+    def one_step():
+        with full_f32():
+            return lm_lib.lm_step(res_fn, x_dyn, lam, c0, cfg.lm, masks)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_step, _ = wall(one_step)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_prof, _ = wall(one_step)
+    items = prof.key_averages()
+    device_items = sorted((e for e in items if e.device_type == torch.autograd.DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False)),
+                          key=lambda e: e.self_device_time_total, reverse=True)
+    kernels = sum(e.count for e in device_items)
+    launches = sum(e.count for e in items if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                         "cudaLaunchKernelExC"))
+    busy = sum(e.self_device_time_total for e in device_items) / 1e6
+    print(f"    one eager DYN_H LM step ({cfg.lm.cg_iters} CG iterations, the "
+          f"{masks.shape[0]}-mask diagonal pass): {t_step * 1e3:.1f} ms, {peak:.2f} GiB above the "
+          f"inputs at peak; profiled: wall {t_prof * 1e3:.1f} ms, {launches} launches, {kernels} "
+          f"device kernels (~{kernels / (cfg.lm.cg_iters + 2):.0f} per JtJ.v product), device "
+          f"busy {busy * 1e3:.1f} ms, idle share {1 - busy / t_prof:.3f}")
+    for e in device_items[:6]:
+        print(f"      device {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<6d} {e.key[:80]}")
+
+    # a small ragged batch, card against the port on the CPU
+    small = [walking_input(24, seed=0), walking_input(20, seed=1)]
+    small_cfg = co.SolveConfig(1, 1, 1, 1, lm=lm_lib.LMConfig(3, 10, 1e-2))
+
+    def traj_d(a, b):
+        return max(float((_t(getattr(a, k)) - _t(getattr(b, k))).abs().max())
+                   for k in ("base_lin", "base_ang", "ee_pos"))
+
+    f64 = torch.float64
+    sb_c, _ = batch_lib.pad_phys_inputs(small, device=dev, dtype=f64)
+    sb_h, _ = batch_lib.pad_phys_inputs(small, device="cpu", dtype=f64)
+    card = batch_lib.solve_physics_full_batch(sb_c, weights, small_cfg)
+    host = batch_lib.solve_physics_full_batch(sb_h, weights, small_cfg)
+    d64 = max(traj_d(a, b) for a, b in zip(card[:3], host[:3]))
+    eq64 = (torch.equal(card[2].contact.cpu(), host[2].contact)
+            and np.array_equal(card[4], host[4]))
+    print(f"    small batch (24 and 20 frames, AL 1/1/1/1, LM 3:10), float64 end to end, card vs "
+          f"CPU: trajectories max|d| {d64:.3e} m (<= {SMALL_PHYS_F64_MAX_D}), rasterized "
+          f"contacts and durations_ok equal: {eq64}")
+    if not (d64 <= SMALL_PHYS_F64_MAX_D and eq64):
+        fail("[19] small batch, float64: the card and the CPU disagree")
+
+    # float32 stage by stage, each stage on the CPU from the card's input
+    sb_c, _ = batch_lib.pad_phys_inputs(small, device=dev, dtype=f32)
+    sb_h, _ = batch_lib.pad_phys_inputs(small, device="cpu", dtype=f32)
+    sp_c, sp_h = batch_lib.pad_duration_specs(sb_c), batch_lib.pad_duration_specs(sb_h)
+    Fs = sb_c.base_lin.shape[1]
+
+    def host_of(tree):
+        return type(tree)(*(t.cpu() for t in tree))
+
+    def parts(a, b):
+        """max|d| of positions (m), angles (rad), forces (N) and, where
+        given, durations (s) between two stage outputs (x, durations)."""
+        va, vb = co.split_vars(a[0].cpu(), Fs), co.split_vars(b[0].cpu(), Fs)
+        out = {"pos": max(float((va[i] - vb[i]).abs().max()) for i in (0, 2)),
+               "ang": float((va[1] - vb[1]).abs().max()),
+               "force": float((va[3] - vb[3]).abs().max())}
+        if a[1] is not None:
+            out["durations"] = float((a[1].cpu() - b[1].cpu()).abs().max())
+        return out
+
+    readings, spreads = {}, {}
+
+    def hold(name, card_out, host_stage, x_in):
+        """The card's stage output against ``host_stage`` from the same input
+        on the CPU, and the CPU's own spread under one-ulp changes of it."""
+        x_h = x_in.cpu()
+        host = host_stage(x_h)
+        readings[name] = parts(card_out, host)
+        sp = [parts(host_stage(torch.nextafter(x_h, torch.full_like(x_h, u * np.inf))), host)
+              for u in SPREAD_ULPS]
+        spreads[name] = {k: max(s[k] for s in sp) for k in readings[name]}
+
+    with full_f32():
+        x_c = co.join_vars(sb_c.base_lin, sb_c.base_ang, sb_c.ee_pos,
+                           torch.zeros_like(sb_c.ee_pos))
+        l_c = co.init_multipliers(sb_c)
+        for name, w, rho in (("FIT", co.FIT_COST, co.FIT_RHO), ("DYN", dyn_cost, co.DYN_RHO),
+                             ("HEIGHT", dyn_cost, co.DYN_H_RHO)):
+            l_h = host_of(l_c)
+            x_in, (x_c, l_c) = x_c, co.run_stage(x_c, sb_c, l_c, w, rho, 1, small_cfg.lm,
+                                                 batch_lib._masks(Fs, sb_c, None))
+            hold(name, (x_c, None), lambda xh, w=w, rho=rho, l_h=l_h: (co.run_stage(
+                xh, sb_h, l_h, w, rho, 1, small_cfg.lm, batch_lib._masks(Fs, sb_h, None))[0],
+                None), x_in)
+        x3_c, d3_c = batch_lib.stage3_solve(sb_c, x_c, sp_c, weights, small_cfg)
+        hold("stage 3", (x3_c, d3_c),
+             lambda xh: batch_lib.stage3_solve(sb_h, xh, sp_h, weights, small_cfg), x_c)
+        new_c = dur.rasterize(d3_c, sp_c, Fs, sb_c.dt)
+        new_h = dur.rasterize(d3_c.cpu(), sp_h, Fs, sb_h.dt)
+        flips = int((new_c.cpu() != new_h).sum())
+        x4_c = batch_lib.stage4_solve(sb_c._replace(contact=new_c), x3_c, weights, small_cfg)
+        hold("stage 4", (x4_c, None), lambda xh: (batch_lib.stage4_solve(
+            sb_h._replace(contact=new_c.cpu()), xh, weights, small_cfg), None), x3_c)
+    bad = [f"{n} {k}" for n, r in readings.items() for k, v in r.items()
+           if not v <= max(SPREAD_X * spreads[n][k], SMALL_PHYS_F32_FLOOR)]
+    print("    small batch, float32 stage by stage (each on the CPU from the card's input), max|d| "
+          f"card vs CPU (the CPU's own one-ulp spread); bound max({SPREAD_X} x spread, "
+          f"{SMALL_PHYS_F32_FLOOR}):")
+    for n, r in readings.items():
+        print(f"      {n}: " + ", ".join(f"{k} {v:.3e} ({spreads[n][k]:.3e})" for k, v in r.items()))
+    print(f"    frames whose rasterized contact differs between the card and the CPU: {flips}")
+    if bad:
+        fail(f"[19] small batch, float32 stage by stage: the card and the CPU disagree: {bad}")
+
+    # -- 20. the run CLI on the card --------------------------------------
+    g = np.load(TRAJ_GOLDEN)
+    skel = golden_skeleton(g)
+    J = len(skel.parents)
+    with tempfile.TemporaryDirectory() as tmp:
+        skel_bvh = os.path.join(tmp, "combined_body_25.bvh")
+        bvh.save(skel_bvh, skel.slice_frames(0, 1), [f"joint_{j}" for j in range(J)])
+        sets = [f"{k}={val}" for k, val in RUN_BUDGET.items()]
+        dirs, t20 = {}, {}
+        for device in ("cuda", "cpu"):
+            root = os.path.join(tmp, device)
+            dirs[device] = synth_video_dir(root, skel)
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["run", "--data", root, "--character", "ybot", "--skel-path",
+                               skel_bvh, "--char-bvh", YBOT_TEMPLATE, "--device", device,
+                               "--set", *sets])
+            t20[device] = time.perf_counter() - t
+            if rc != 0:
+                fail(f"[20] the run CLI on {device} returned {rc}")
+        labels = ("no_dynamics", "dynamics", "durations")
+        want = {"kinematic_results": ["final_test.bvh", "floor_out.txt", "foot_contacts.npy",
+                                      "ybot_out.bvh"],
+                "phys_optim_in_ybot": ["contact_info.txt", "motion_info.txt", "skel_info.txt",
+                                       "terrain_info.txt"],
+                "phys_optim_out_ybot": sorted([f"sol_out_{s}.txt" for s in labels]
+                                              + ["success_log.txt"]
+                                              + [f"dance_synth_ybot_{s}.bvh" for s in labels])}
+        found, logs, sol_d, bvh_d, joints = {}, {}, 0.0, 0.0, set()
+        for device, vd in dirs.items():
+            found[device] = {k: sorted(os.listdir(os.path.join(vd, k))) for k in want
+                             if os.path.isdir(os.path.join(vd, k))}
+            logs[device] = towr_io.load_success_log(
+                os.path.join(vd, "phys_optim_out_ybot", "success_log.txt"))
+        for label in labels:
+            a, b = (towr_io.load_results(os.path.join(dirs[k], "phys_optim_out_ybot",
+                                                      f"sol_out_{label}.txt"))
+                    for k in ("cuda", "cpu"))
+            sol_d = max(sol_d, float(np.abs(a.base_pos - b.base_pos).max()),
+                        float(np.abs(a.feet_pos - b.feet_pos).max()))
+            pa, pb_ = [], []
+            for k, acc in (("cuda", pa), ("cpu", pb_)):
+                anim, _, _ = bvh.load(os.path.join(dirs[k], "phys_optim_out_ybot",
+                                                   f"dance_synth_ybot_{label}.bvh"))
+                joints.add(anim.num_joints)
+                acc.append(fk.positions_global(torch.from_numpy(anim.rotations),
+                                               torch.from_numpy(anim.positions),
+                                               anim.parents).numpy())
+            bvh_d = max(bvh_d, float(np.abs(pa[0] - pb_[0]).max()))
+        print(f"[20] run CLI on the card (synthetic 12-frame video dir; kinematic IK 20, LM 8:30; "
+              f"retarget to ybot, IK 200; physics AL 1/1/1/1, LM 3:10): {t20['cuda']:.2f} s "
+              f"({t20['cpu']:.2f} s on the CPU); wrote {found['cuda']}; success logs {logs}; "
+              f"BVH joints {sorted(joints)}; against the CPU run: solutions max|d| {sol_d:.3e} m "
+              f"(<= {RUN_SOL_MAX_D}), BVH joints max|d| {bvh_d:.3e} cm (<= {RUN_BVH_MAX_D})")
+        if (found["cuda"] != want or found["cpu"] != want or joints != {67}
+                or set(logs["cuda"]) != {"dynamics", "durations"}):
+            fail("[20] the run CLI missed an artifact on the card")
+        if not (sol_d <= RUN_SOL_MAX_D and bvh_d <= RUN_BVH_MAX_D):
+            fail("[20] the run CLI on the card disagrees with the CPU")
+
+
+def _t(a):
+    import torch
+
+    return torch.as_tensor(np.asarray(a.cpu() if hasattr(a, "cpu") else a), dtype=torch.float64)
+
+
+def _np_res(r) -> np.ndarray:
+    return np.concatenate([np.asarray(r.base_lin).ravel(), np.asarray(r.ee_pos).ravel(),
+                           np.asarray(r.ee_force).ravel()])
+
+
 def main() -> None:
     import torch
 
@@ -1256,6 +1815,7 @@ def main() -> None:
 
     entry = contact_phases(torch, dev, smi)
     kinematic_phases(torch, dev, smi)
+    physics_phases(torch, dev, smi)
 
     if "jax" in sys.modules or any(m.split(".")[0] == "chd_tpu" for m in sys.modules):
         fail("jax or chd_tpu was imported")

@@ -32,6 +32,11 @@ def test_port_imports_no_jax():
                      if not m.name.endswith(".__main__"))
     assert "chd_tpu_torch.contact.train" in modules and "chd_tpu_torch.utils.checkpoint" in modules
     assert "chd_tpu_torch.kinematics.batch" in modules and "chd_tpu_torch.pipeline.run" in modules
+    for name in ("characters.registry", "physics.types", "physics.srbd", "physics.synth",
+                 "physics.prepare", "physics.towr_io", "physics.durations",
+                 "physics.collocation", "physics.apply", "parallel.batch", "retarget.mixamo",
+                 "pipeline.probe", "utils.log"):
+        assert f"chd_tpu_torch.{name}" in modules, name
     code = (f"import sys; import {', '.join(modules)}; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'optax', 'chd_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,

@@ -19,12 +19,13 @@ import pytest
 import torch
 
 from chd_tpu.characters import defs as jax_defs
+from chd_tpu.characters import registry as jax_registry
 from chd_tpu.core import bvh as jax_bvh
 from chd_tpu.core import fk as jax_fk
 from chd_tpu.core import quat as jax_quat
 from chd_tpu.core import skeleton as jax_skeleton
 from chd_tpu.utils import config as jax_config
-from chd_tpu_torch.characters import defs
+from chd_tpu_torch.characters import defs, get_character, registry
 from chd_tpu_torch.core import bvh, fk, quat, skeleton
 from chd_tpu_torch.core.animation import Animation
 from chd_tpu_torch.ingest import openpose
@@ -52,7 +53,8 @@ def _golden_parents():
     "COMBINED_SMOOTH_WEIGHTS", "COMBINED_SKEL_TO_DATA", "COMBINED_DATA_TO_SKEL",
     "COMBINED_SKEL_ROOT_IDX", "COMBINED_SKEL_SPINE_JOINTS", "COMBINED_SKEL_FEET_IDX",
     "CONTACT_TO_DATA_JOINTS", "OP_ROOT_JOINT", "OP_JOINT_SUBSETS", "SMPL_FOR_COMBINED_SKEL",
-    "COMBINED_SKEL_FOR_SMPL", "MTC_WIDTH", "MTC_HEIGHT", "MTC_FOCAL", "MTC_PP",
+    "COMBINED_SKEL_FOR_SMPL", "COMBINED_FOOT_INDS", "COMBINED_TOE_INDS", "COMBINED_ANKLE_INDS",
+    "COMBINED_EYE_INDS", "MTC_WIDTH", "MTC_HEIGHT", "MTC_FOCAL", "MTC_PP",
 ])
 def test_defs_table_equals_chd_tpu(name):
     got, want = getattr(defs, name), getattr(jax_defs, name)
@@ -62,6 +64,29 @@ def test_defs_table_equals_chd_tpu(name):
             np.testing.assert_array_equal(got[k], want[k])
     else:
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(jax_registry.CHARACTERS))
+def test_registry_tables_equal_chd_tpu(name):
+    got, want = get_character(name), jax_registry.get_character(name)
+    assert sorted(registry.CHARACTERS) == sorted(jax_registry.CHARACTERS)
+    for field in want.__dataclass_fields__:
+        g, w = getattr(got, field), getattr(want, field)
+        if isinstance(w, dict):
+            assert g.keys() == w.keys()
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k])
+        elif w is None:
+            assert g is None, field
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=field)
+    for g, w in zip(got.segment_matrices(), want.segment_matrices()):
+        np.testing.assert_array_equal(g, w)
+    assert (got.toe_inds, got.ankle_inds, got.hip_inds, got.foot_inds, got.has_heel) == \
+        (want.toe_inds, want.ankle_inds, want.hip_inds, want.foot_inds, want.has_heel)
+    for table in ("SEGMENT_NAMES", "MASS_PERC_MALE", "MASS_PERC_FEMALE", "MALE_MASS",
+                  "FEMALE_MASS", "HEELED_CHARACTERS"):
+        assert getattr(registry, table) == getattr(jax_registry, table)
 
 
 def test_config_equals_chd_tpu():

@@ -22,6 +22,12 @@ chip_smoke.py drives the card with. Tolerances:
   ``run_kinematic_stage`` (float32) on one synthetic video dir: the same
   refined contacts, floor normal cos >= 1 - 1e-6, floor point within
   0.05 cm, BVH joint positions within 0.05 cm;
+- the port's physics stage (``run_physics_stage``, ``combined``) on a
+  ``kinematic_results/`` that chd_tpu's kinematic and retarget stages
+  wrote: every file of chd_tpu's layout, finite stats (the pipeline's
+  interchange with chd_tpu, beside the run of chd_tpu's kinematic stage
+  above, whose compile it reuses; the other direction is in
+  tests/test_torch_pipeline_run.py);
 - the golden at its pinned 50:100: the gates of tests/test_goldens.py
   (marked slow, as chd_tpu's is: ~3 min on the CPU; ``chip_smoke.py``
   [14] holds it on the card).
@@ -38,6 +44,7 @@ from chd_tpu.kinematics import batch as jax_batch
 from chd_tpu.kinematics import trajectory as jax_traj
 from chd_tpu.kinematics.lm import LMConfig as JaxLMConfig
 from chd_tpu.pipeline.run import run_kinematic_stage as jax_run_kinematic_stage
+from chd_tpu.pipeline.run import run_retarget_stage as jax_run_retarget_stage
 from chd_tpu.utils.config import KinematicConfig as JaxKinematicConfig
 from chd_tpu.utils.config import PipelineConfig as JaxPipelineConfig
 from chd_tpu_torch.core import bvh, fk
@@ -46,11 +53,24 @@ from chd_tpu_torch.kinematics.ik import IKConfig
 from chd_tpu_torch.kinematics.lm import LMConfig
 from chd_tpu_torch.kinematics.residuals import Layout, data_order_positions
 from chd_tpu_torch.pipeline import cli
+from chd_tpu_torch.pipeline.run import run_physics_stage
+from chd_tpu_torch.utils.config import PipelineConfig
 from chip_smoke import (SMALL_IK_MAX_D, SMALL_LM_MAX_D, kin_problem, synth_video_dir,
                         tf32_rounded, trajectory_golden_gates)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 GOLDEN = os.path.join(FIXTURES, "trajectory_golden.npz")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU solves: they are many small
+    ops, whose every parallel region stalls when the other test workers
+    hold the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -222,6 +242,30 @@ def test_cli_kinematic_matches_chd_tpu(tmp_path, skel):
     gp = [fk.positions_global(torch.from_numpy(a.rotations), torch.from_numpy(a.positions),
                               a.parents).numpy() for a in (got[0], want[0])]
     assert np.abs(gp[0] - gp[1]).max() < 0.05  # cm
+
+
+def test_port_physics_reads_chd_tpu_kinematic_results(tmp_path, skel):
+    skel_bvh = str(tmp_path / "combined_body_25.bvh")
+    bvh.save(skel_bvh, skel.slice_frames(0, 1), [f"joint_{j}" for j in range(len(skel.parents))])
+    jax_dir = synth_video_dir(str(tmp_path / "jax"), skel)
+    cfg = JaxPipelineConfig(character="combined", kinematic=JaxKinematicConfig(
+        skel_path=skel_bvh, ik_iterations=20, lm_iters=8, cg_iters=30))
+    jax_run_kinematic_stage(jax_dir, cfg)
+    jax_run_retarget_stage(jax_dir, cfg)
+    res = run_physics_stage(jax_dir, PipelineConfig(character="combined").override(**{
+        "physics.al_iters_fit": 1, "physics.al_iters_dyn": 1, "physics.al_iters_height": 1,
+        "physics.al_iters_durations": 1, "physics.lm_iters": 3, "physics.cg_iters": 10}),
+        device="cpu")
+    assert np.isfinite(list(res["stats"].values())).all()
+    assert sorted(os.listdir(os.path.join(jax_dir, "phys_optim_in_combined"))) == [
+        "contact_info.txt", "motion_info.txt", "skel_info.txt", "terrain_info.txt"]
+    labels = ("no_dynamics", "dynamics", "durations")
+    assert sorted(os.listdir(res["out_dir"])) == sorted(
+        [f"sol_out_{s}.txt" for s in labels] + ["success_log.txt"]
+        + [f"dance_synth_combined_{s}.bvh" for s in labels])
+    for label in labels:
+        anim, _, _ = bvh.load(os.path.join(res["out_dir"], f"dance_synth_combined_{label}.bvh"))
+        assert anim.num_joints == 28 and anim.num_frames == 12
 
 
 @pytest.mark.slow
