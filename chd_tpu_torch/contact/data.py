@@ -26,6 +26,7 @@ import torch
 from ..characters.defs import OP_ROOT_JOINT
 from ..ingest import openpose
 from ..ops import gapfill, windows
+from ..utils.device import resolve_device
 
 
 def _subdirs(path: str) -> List[str]:
@@ -118,7 +119,10 @@ class ContactDataset:
 
     @classmethod
     def load(cls, root: str, conf_thresh: float = 0.2, train_frac: float = 0.8,
-             device="cpu") -> "ContactDataset":
+             device="cuda") -> "ContactDataset":
+        """The Mixamo tree under ``root`` on ``device``, which defaults to
+        ``cuda`` and raises where CUDA is absent."""
+        device = resolve_device(device)
         chars = character_paths(root)
         if not chars:
             raise FileNotFoundError(f"no character dirs under {root}")

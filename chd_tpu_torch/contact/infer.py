@@ -20,11 +20,13 @@ Left out of ``chd_tpu``'s detector, on purpose:
   of one video equal between V=1 and V=21.
 - ``use_pallas`` and its backend sniffing: the kernel is the MLP of every
   path, so there is nothing to select.
-- ``precision`` and ``mlp_dtype``: the MLP has one precision per device.
-  On the card the kernel runs layers 0-2 on tensor cores as chd_tpu's
-  default ``precision="high"`` (3-pass bf16 split, float32 sums) and layers
-  3-4 in float32; on the CPU the plain version runs full float32. The
-  single-pass bf16 ``mlp_dtype`` waits for a label-agreement gate (ROADMAP).
+
+``precision`` (None or "default", "high", "highest") and ``mlp_dtype`` (None
+or ``torch.bfloat16``) are chd_tpu's: on the card the kernel runs layers 0-2
+on tensor cores in 1, 3 or 6 bf16 passes with float32 sums, or with bf16
+storage in one pass (``ops.fused_mlp.mlp_mode``); on the CPU the plain
+version runs full float32 in every precision, as chd_tpu's matmuls do
+there, and the bf16 roundings of ``mlp_dtype``. Any other value raises.
 
 ``ContactDetector`` takes a ``ContactMLP`` where ``chd_tpu``'s takes the
 (params, state) pytrees; ``models.torch_convert.from_jax_params`` converts.
@@ -42,7 +44,7 @@ from ..ingest import openpose
 from ..models import contact_mlp
 from ..models.contact_mlp import ContactMLP
 from ..ops import gapfill, voting, windows
-from ..ops.fused_mlp import MlpLayers, fused_mlp
+from ..ops.fused_mlp import MlpLayers, fused_mlp, mlp_mode
 from ..utils.device import resolve_device
 
 # Constants matching training of the reference model
@@ -69,21 +71,27 @@ def subset_joints(joint_subset: Sequence[int]) -> Tuple[List[int], int, bool]:
 
 
 def mlp_layers(folded: Folded, *, window_size: int, joint_subset: Sequence[int],
-               use_confidence: bool, use_conv: bool) -> MlpLayers:
-    """BN-folded weights → the kernel's ``(in, out)`` layers, once per detector.
+               use_confidence: bool, use_conv: bool, precision: Optional[str] = "high",
+               mlp_dtype=None) -> MlpLayers:
+    """BN-folded weights → the kernel's ``(in, out)`` layers in the mode of
+    ``precision`` and ``mlp_dtype``, once per detector.
 
     In conv mode the first layer is ``windows.layer1_conv_kernel`` as
     ``(window_size * J * 3, out)``: featurization folded into the weight, so
     the kernel's strided rows over the preprocessed frames are its input.
+    With bf16 storage the conv kernel is built in bf16 arithmetic from the
+    bf16 weights, as chd_tpu builds it.
     """
+    mode = mlp_mode(precision, mlp_dtype)
     layers = [(w.T.contiguous(), b) for w, b in zip(folded["w"], folded["b"])]
     if use_conv:
         joints, root_in_subset, root_appended = subset_joints(joint_subset)
         J = len(joints)
-        K = windows.layer1_conv_kernel(folded["w"][0], window_size, J, root_in_subset,
-                                       J - root_appended, use_confidence)
+        w0 = folded["w"][0].to(torch.bfloat16) if mode == "bf16" else folded["w"][0]
+        K = windows.layer1_conv_kernel(w0, window_size, J, root_in_subset,
+                                       J - root_appended, use_confidence).float()
         layers[0] = (K.reshape(window_size * J * 3, -1), folded["b"][0])
-    return MlpLayers(layers)
+    return MlpLayers(layers, mode)
 
 
 def mlp_logits(x: torch.Tensor, layers: Layers, *, window_size: int,
@@ -111,7 +119,8 @@ def _infer_batch(op_batch: torch.Tensor, layers: Layers, *, window_size: int,
                  classify_thresh: float, use_conv: bool = True,
                  mlp: Mlp = fused_mlp) -> Tuple[torch.Tensor, torch.Tensor]:
     """(V, F, 25, 3) float32 → ((V, F, 4) int32 contacts, (V, N, P, 4) probs),
-    with ``layers`` from ``mlp_layers`` of the same keyword arguments.
+    with ``layers`` from ``mlp_layers`` of the same keyword arguments, which
+    carry the precision mode.
 
     Gap-fill runs on the subset joints only: the other joints never feed
     the model.
@@ -150,6 +159,8 @@ class ContactDetector:
         normalization: float = TRAIN_NORMALIZATION,
         classify_thresh: float = 0.5,
         use_conv: bool = True,
+        precision: Optional[str] = "high",
+        mlp_dtype=None,
     ):
         if window_size % 2 == 0:  # must be odd, as the reference coerces it
             window_size += 1
@@ -168,7 +179,8 @@ class ContactDetector:
         )
         self.layers = mlp_layers(folded, window_size=window_size,
                                  joint_subset=self.kw["joint_subset"],
-                                 use_confidence=use_confidence, use_conv=use_conv)
+                                 use_confidence=use_confidence, use_conv=use_conv,
+                                 precision=precision, mlp_dtype=mlp_dtype)
 
     def infer(self, op_batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(V, F, 25, 3) tensor → ((V, F, 4) contacts, (V, N, P, 4) probs),

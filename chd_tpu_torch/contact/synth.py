@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..ops import gapfill
+from ..utils.device import resolve_device
 from .data import ContactDataset
 
 
@@ -48,8 +49,10 @@ def learnable_keypoints(n_seq: int, frames: int, seed: int = 0):
 
 
 def learnable_dataset(n_seq: int = 24, frames: int = 60, seed: int = 0, n_holdout: int = 4,
-                      device="cpu") -> ContactDataset:
-    """``learnable_keypoints`` gap-filled and normalized on ``device``."""
+                      device="cuda") -> ContactDataset:
+    """``learnable_keypoints`` gap-filled and normalized on ``device``, which
+    defaults to ``cuda`` and raises where CUDA is absent."""
+    device = resolve_device(device)
     op, contacts = learnable_keypoints(n_seq, frames, seed)
     norm = float(np.median(np.linalg.norm(op[:, :, 8, :2] - op[:, :, 19, :2], axis=-1)))
     proc = gapfill.preprocess_keypoints(torch.from_numpy(op).to(device), 0.2, norm)

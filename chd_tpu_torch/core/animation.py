@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 class Animation:
     def __init__(self, rotations, positions, orients, offsets, parents):
@@ -55,3 +57,15 @@ class Animation:
 
         return Animation(n(self.rotations), n(self.positions), n(self.orients),
                          n(self.offsets), self.parents)
+
+
+def on_device(anim, device="cuda") -> Animation:
+    """``anim`` itself when its rotations are a tensor (its device and dtype
+    decide); an animation with array leaves goes to ``device`` (raises for
+    CUDA where there is none), as float64 if its rotations are float64, else
+    float32."""
+    if isinstance(anim.rotations, torch.Tensor):
+        return anim
+    f64 = np.asarray(anim.rotations).dtype == np.float64
+    return Animation.from_numpy(anim, resolve_device(device),
+                                torch.float64 if f64 else torch.float32)

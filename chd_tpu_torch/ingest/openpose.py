@@ -1,9 +1,10 @@
 """OpenPose keypoint ingestion (port of chd_tpu/ingest/openpose.py).
 
 OpenPose BODY_25 JSON output directories → ``(F, 25, 3)`` arrays: first
-detected person only, an all-zero row where no person was found. The C++
-parser of ``utils.native`` reads whole directories when its library builds;
-otherwise, or if it rejects a file, the json module does.
+detected person only, an all-zero row where no person was found. With
+``use_native`` (the default) the C++ parser of ``utils.native`` reads whole
+directories when its library builds; otherwise, or if it rejects a file, the
+json module does.
 """
 from __future__ import annotations
 
@@ -33,15 +34,16 @@ def keypoint_files(dir_path: str) -> List[str]:
     )
 
 
-def load_keypoint_dir(dir_path: str) -> Optional[np.ndarray]:
+def load_keypoint_dir(dir_path: str, use_native: bool = True) -> Optional[np.ndarray]:
     """A whole video's keypoints as (F, 25, 3) float64, or None if no dir."""
     if not os.path.isdir(dir_path):
         return None
     files = keypoint_files(dir_path)
-    try:
-        arr = native.load_keypoint_dir(files)
-    except OSError:
-        arr = None
-    if arr is not None:
-        return arr
+    if use_native:
+        try:
+            arr = native.load_keypoint_dir(files)
+        except OSError:
+            arr = None
+        if arr is not None:
+            return arr
     return np.stack([load_keypoint_file(f) for f in files], axis=0)

@@ -1,9 +1,10 @@
 """MonocularTotalCapture (MTC) result ingestion and the combined skeleton
-(port of the kinematic stage's part of chd_tpu/ingest/totalcap.py).
+(port of chd_tpu/ingest/totalcap.py).
 
-``tracked_results.json`` → a typed result struct; root normalization; the
-combined-skeleton (BODY_25 + SMPL spine) data array; SMPL → combined
-axis-angle remapping. Host-side numpy, as in ``chd_tpu``.
+``tracked_results.json`` → a typed result struct; the MTC-format frame
+re-saver; root normalization; the combined-skeleton (BODY_25 + SMPL spine)
+data array; SMPL ↔ combined ↔ Mixamo axis-angle remapping. Host-side numpy,
+as in ``chd_tpu``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional
 import numpy as np
 
 from ..characters import defs
+from ..characters.registry import get_character
 
 BODY_25_ROOT_IDX = defs.BODY_25_ROOT_IDX
 SMPL_ROOT_IDX = defs.SMPL_ROOT_IDX
@@ -58,6 +60,21 @@ def load_totalcap_results(path: str) -> Optional[TotalCapResults]:
     return TotalCapResults(root, joint3d, smpl3d, smpl_ang, body, face)
 
 
+def save_totalcap_results(res: TotalCapResults, out_dir: str) -> None:
+    """Re-save per-frame txt in the MTC input format: root line, pose line
+    with 40 dummy hand joints appended, body coeffs, face coeffs."""
+    os.makedirs(out_dir, exist_ok=True)
+    F = res.smpl_joint_angles.shape[0]
+    hands = np.zeros((40, 3))
+    for i in range(F):
+        angles = np.concatenate([res.smpl_joint_angles[i], hands], axis=0).reshape(-1)
+        with open(os.path.join(out_dir, "%04d.txt" % (i + 1)), "w") as f:
+            f.write(" ".join(str(v) for v in res.root_trans[i]) + "\n")
+            f.write(" ".join(str(v) for v in angles) + "\n")
+            f.write(" ".join(str(v) for v in res.body_coeffs[i]) + "\n")
+            f.write(" ".join(str(v) for v in res.face_coeffs[i]))
+
+
 def normalize_root_pos(root_trans, joint3d, root_idx: int = BODY_25_ROOT_IDX):
     """Push any residual root-joint offset into the global translation so all
     joints are root-relative."""
@@ -85,3 +102,13 @@ def _remap_angles(angles, index_map):
 def combined_angles_from_smpl(smpl_angles):
     """(F, 22, 3) SMPL axis-angles → (F, 28, 3) combined-skeleton-order angles."""
     return _remap_angles(smpl_angles, defs.SMPL_FOR_COMBINED_SKEL)
+
+
+def smpl_from_combined_angles(combined_angles):
+    """(F, 28, 3) combined-skeleton-order angles → (F, 22, 3) SMPL angles."""
+    return _remap_angles(combined_angles, defs.COMBINED_SKEL_FOR_SMPL)
+
+
+def mixamo_angles_from_smpl(smpl_angles, character: str = "ybot"):
+    """(F, 22, 3) → (F, J_char, 3) via the character's to-SMPL map."""
+    return _remap_angles(smpl_angles, get_character(character).to_smpl)

@@ -10,9 +10,11 @@ point. Between the copy of the prepared arrays to the device and the copy of
 the results back, nothing syncs with the host (``_refine_core``).
 
 Each stage is a function of its own (``ik_init_batch``, ``lm_stage``,
-``floor_stage``), so a caller can time them apart. ``chd_tpu``'s ``mesh``
-argument (sequences sharded over devices) waits for the multi-card port,
-and its banded LM inner solve for ``kinematics/banded.py``.
+``floor_stage``), so a caller can time them apart. The LM stages solve their
+inner systems by PCG (``lm_solver="pcg"``, the default) or by the banded
+direct solve of ``kinematics/banded.py`` (``"banded"``). ``chd_tpu``'s
+``mesh`` argument (sequences sharded over devices) waits for the multi-card
+port.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from ..core import quat
 from ..core.animation import Animation
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import resolve_device
+from . import banded as banded_lib
 from . import floor as floor_lib
 from . import trajectory as traj_lib
 from .ik import IKConfig, IKLayout, _solve as ik_solve
@@ -42,13 +45,20 @@ def _pad_frames(a: np.ndarray, F: int) -> np.ndarray:
     return np.concatenate([a, reps], axis=0)
 
 
+LM_SOLVERS = ("pcg", "banded")
+
+
 class BatchConsts:
     """Device constants of a batch shape: the residual layout, the IK layout,
-    the coloring masks and the gathers of targets and feet. Built before a
-    solve (they copy from the host); a ``GraphCache`` keeps one per shape."""
+    the coloring masks of the LM solver (the diagonal's for "pcg", the
+    bands' for "banded") and the gathers of targets and feet. Built before a
+    solve (they copy from the host); a ``GraphCache`` keeps one per shape and
+    solver."""
 
     def __init__(self, parents: Sequence[int], num_frames: int, ik_cfg: IKConfig,
-                 device, dtype):
+                 device, dtype, lm_solver: str = "pcg"):
+        if lm_solver not in LM_SOLVERS:
+            raise ValueError(f"lm_solver must be one of {LM_SOLVERS}, not {lm_solver!r}")
         J = len(parents)
         spine = set(int(s) for s in defs.COMBINED_SKEL_SPINE_JOINTS)
         tidx = tuple(j for j in range(J) if j not in spine)
@@ -56,18 +66,22 @@ class BatchConsts:
         self.layout = Layout(parents, device, dtype)
         self.ik = IKLayout(parents, tidx, ik_cfg, ones, ones)
         self.target_cols = torch.as_tensor(_S2D[list(tidx)], device=device)
-        self.masks = frame_coloring_masks(num_frames, 3 + J * 3, dtype=dtype, device=device)
+        self.lm_solver = lm_solver
+        masks = banded_lib.coloring_masks if lm_solver == "banded" else frame_coloring_masks
+        self.masks = masks(num_frames, 3 + J * 3, dtype=dtype, device=device)
         self.feet_cols = torch.as_tensor(_S2D[defs.COMBINED_SKEL_FEET_IDX], device=device)
         self.xz = torch.as_tensor([0, 2], device=device)
         self.smooth = torch.as_tensor(defs.COMBINED_SMOOTH_WEIGHTS, dtype=dtype, device=device)
 
 
 def batch_consts(parents, num_frames: int, ik_cfg: IKConfig, device, dtype,
-                 graphs: Optional[GraphCache] = None) -> BatchConsts:
-    key = ("kinematic_batch", tuple(parents), num_frames, ik_cfg, torch.device(device), dtype)
+                 graphs: Optional[GraphCache] = None, lm_solver: str = "pcg") -> BatchConsts:
+    key = ("kinematic_batch", tuple(parents), num_frames, ik_cfg, torch.device(device), dtype,
+           lm_solver)
     if graphs is None:
-        return BatchConsts(parents, num_frames, ik_cfg, device, dtype)
-    return graphs.constant(key, lambda: BatchConsts(parents, num_frames, ik_cfg, device, dtype))
+        return BatchConsts(parents, num_frames, ik_cfg, device, dtype, lm_solver)
+    return graphs.constant(key, lambda: BatchConsts(parents, num_frames, ik_cfg, device, dtype,
+                                                    lm_solver))
 
 
 def prepare_batch_arrays(problems: Sequence[dict], skeleton: Animation, cam_focal=defs.MTC_FOCAL,
@@ -129,8 +143,13 @@ def make_data(arrs, consts: BatchConsts, vc, normal, point) -> TrajectoryData:
 
 def lm_stage(x0, data: TrajectoryData, w: TermWeights, consts: BatchConsts, lm_cfg: LMConfig,
              graphs: Optional[GraphCache] = None) -> torch.Tensor:
-    """One LM stage over the batch, with the exact coloring diagonal."""
-    x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, consts.masks, graphs)
+    """One LM stage over the batch: PCG with the exact coloring diagonal, or
+    the banded direct solve (``consts.lm_solver``)."""
+    if consts.lm_solver == "banded":
+        x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, graphs=graphs,
+                        banded_masks=consts.masks)
+    else:
+        x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, consts.masks, graphs)
     return x
 
 
@@ -201,6 +220,7 @@ def optimize_trajectory_batch(
     ik_solver: str = "cg",
     floor: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     graphs: Optional[GraphCache] = None,
+    lm_solver: str = "pcg",
 ) -> List[traj_lib.TrajectoryResult]:
     """problems: per-sequence dicts with keys pose2d (F,28,2), conf2d (F,28),
     pose3d (F,28,3), root_pos (F,3), smpl_angles (F,J,3), vel_constraints
@@ -209,7 +229,8 @@ def optimize_trajectory_batch(
     ``device`` defaults to ``cuda`` and raises where CUDA is absent. The
     default budget is ``chd_tpu``'s: 200 IK iterations (CG, 64 iterations)
     and two LM stages of 40 steps with 80 CG iterations each. ``floor``, a
-    given (normal, point), skips the floor fit.
+    given (normal, point), skips the floor fit. ``lm_solver`` "pcg" (the
+    default) or "banded" picks the LM stages' inner solve.
 
     On a CUDA device the LM steps and the CG IK iterations are replayed as
     CUDA graphs, bitwise the eager path's results (4.3x faster at 16 x 100 on an
@@ -225,7 +246,7 @@ def optimize_trajectory_batch(
     lens = [p["pose2d"].shape[0] for p in problems]
     arrs, F = prepare_batch_arrays(problems, skeleton, cam_focal, cam_pp, device, dtype)
     ik_cfg = IKConfig(iterations=ik_iterations, damping=7.0, solver=ik_solver)
-    consts = batch_consts(parents, F, ik_cfg, device, dtype, graphs)
+    consts = batch_consts(parents, F, ik_cfg, device, dtype, graphs, lm_solver)
     given = None
     if floor is not None:
         given = tuple(torch.as_tensor(np.asarray(v), dtype=dtype, device=device) for v in floor)

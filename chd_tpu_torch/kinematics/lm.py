@@ -25,10 +25,17 @@ the cross terms of (JᵀJ v) ⊙ v vanish: ``dofs_per_frame × (bandwidth+1)``
 products give the exact diagonal. They run as one ``torch.func.vmap`` pass,
 the masks broadcast over the sequences, not copied.
 
+Without masks the damping is λI, with unit scales and a unit
+preconditioner. ``banded_masks`` (``banded.coloring_masks(num_frames,
+dofs_per_frame)``, in place of chd_tpu's ``banded_spec``) replace the PCG
+inner solve by ``kinematics/banded.py``'s exact block-pentadiagonal
+factorization (one vmapped pass of 5 × D products and ~F/2 batched Cholesky
+steps a step) for residuals that couple frames at most 2 apart, variables
+laid out frame-major.
+
 ``graphs=`` (a ``utils.cuda_graph.GraphCache``) replays each LM step as a
 captured CUDA graph: the same kernels as the eager step, launched by one
-call. ``chd_tpu``'s λI damping without masks and its banded direct inner
-solve (``banded_spec``) are not ported: the kinematic stage uses neither.
+call, one capture per mode and shape.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from ..utils.cuda_graph import GraphCache
+from . import banded as banded_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +103,12 @@ def _half_sq(r: torch.Tensor) -> torch.Tensor:
     return 0.5 * (r * r).sum(-1, keepdim=True)
 
 
-def lm_step(res: Callable, x, lam, c, cfg: LMConfig, diag_masks: torch.Tensor):
-    """One LM step for every problem: (x, λ, cost) → (x, λ, cost)."""
+def lm_step(res: Callable, x, lam, c, cfg: LMConfig, diag_masks: Optional[torch.Tensor] = None,
+            banded_masks: Optional[torch.Tensor] = None):
+    """One LM step for every problem: (x, λ, cost) → (x, λ, cost). The inner
+    solve is PCG, with the coloring diagonal of ``diag_masks`` or λI
+    damping, or, given ``banded_masks`` (``banded.coloring_masks(F, D)``,
+    (5·D, F·D)), the banded direct solve on the blocks they extract."""
     r, vjp_fn = torch.func.vjp(res, x)
     g = vjp_fn(r)[0]
     _, lin = torch.func.vjp(lambda cot: vjp_fn(cot)[0], torch.zeros_like(r))
@@ -104,15 +116,25 @@ def lm_step(res: Callable, x, lam, c, cfg: LMConfig, diag_masks: torch.Tensor):
     def jtjv(v):
         return vjp_fn(lin(v)[0])[0]
 
-    m = diag_masks.unsqueeze(1).expand((diag_masks.shape[0],) + x.shape)
-    diag = torch.func.vmap(lambda mk: mk * jtjv(mk))(m).sum(0)
-    scale = torch.clamp(diag, min=cfg.diag_floor)
-    inv_diag = 1.0 / (scale * (1.0 + lam))
-
-    delta = _pcg(lambda v: jtjv(v) + lam * scale * v, -g, inv_diag, cfg.cg_iters)
+    if banded_masks is not None:
+        D = banded_masks.shape[0] // 5  # (5·D, F·D): bandwidth 2, stride 5
+        F, B = banded_masks.shape[1] // D, x.shape[0]
+        U0, L1, L2 = banded_lib.banded_jtj(jtjv, banded_masks, B, F, D)
+        scale_f = torch.clamp(torch.diagonal(U0, dim1=-2, dim2=-1), min=cfg.diag_floor)
+        A0 = U0 + lam.unsqueeze(-1).unsqueeze(-1) * torch.diag_embed(scale_f)
+        delta = banded_lib.block_penta_solve(A0, L1, L2, (-g).reshape(B, F, D)).reshape(B, -1)
+    else:
+        if diag_masks is not None:
+            m = diag_masks.unsqueeze(1).expand((diag_masks.shape[0],) + x.shape)
+            diag = torch.func.vmap(lambda mk: mk * jtjv(mk))(m).sum(0)
+            scale = torch.clamp(diag, min=cfg.diag_floor)
+            inv_diag = 1.0 / (scale * (1.0 + lam))
+        else:
+            scale = inv_diag = torch.ones_like(x)
+        delta = _pcg(lambda v: jtjv(v) + lam * scale * v, -g, inv_diag, cfg.cg_iters)
     x_new = x + delta
     c_new = _half_sq(res(x_new))
-    accept = c_new < c
+    accept = c_new < c  # False where c_new is NaN (a failed factorization)
     lam = torch.clamp(torch.where(accept, lam * cfg.lambda_down, lam * cfg.lambda_up),
                       cfg.min_lambda, cfg.max_lambda)
     return torch.where(accept, x_new, x), lam, torch.where(accept, c_new, c)
@@ -153,13 +175,19 @@ def _tensor_floats(obj, like: torch.Tensor):
 
 
 def lm_solve(residual_fn: Callable, x0: torch.Tensor, args, cfg: LMConfig,
-             diag_masks: torch.Tensor, graphs: Optional[GraphCache] = None):
+             diag_masks: Optional[torch.Tensor] = None, graphs: Optional[GraphCache] = None,
+             banded_masks: Optional[torch.Tensor] = None):
     """Minimize ½‖residual_fn(x, *args)[b]‖² from x0[b] for every problem b.
 
     x0: (B, n); ``residual_fn`` returns (B, R). ``diag_masks`` (from
     ``frame_coloring_masks``) give the exact Marquardt scaling and Jacobi
-    preconditioner. Returns (x (B, n), final cost (B,)).
+    preconditioner; without them the damping is λI. ``banded_masks``
+    (``banded.coloring_masks(F, D)``) switch the inner solve to the banded
+    direct solve (``diag_masks`` is then ignored). Returns (x (B, n), final
+    cost (B,)).
     """
+    if banded_masks is not None:
+        diag_masks = None
     args = _tensor_floats(tuple(args), x0)
     B = x0.shape[0]
     lam = torch.full((B, 1), cfg.init_lambda, dtype=x0.dtype, device=x0.device)
@@ -167,20 +195,22 @@ def lm_solve(residual_fn: Callable, x0: torch.Tensor, args, cfg: LMConfig,
     if graphs is None:
         x = x0
         for _ in range(cfg.max_iters):
-            x, lam, c = lm_step(lambda v: residual_fn(v, *args), x, lam, c, cfg, diag_masks)
+            x, lam, c = lm_step(lambda v: residual_fn(v, *args), x, lam, c, cfg, diag_masks,
+                                banded_masks)
         return x, c.squeeze(-1)
 
     leaves: list = []
-    spec = _flatten((args, diag_masks), leaves)
+    spec = _flatten((args, diag_masks, banded_masks), leaves)
 
     def step(state, static):
-        a, masks = _unflatten(spec, iter(static))
-        return lm_step(lambda v: residual_fn(v, *a), *state, cfg, masks)
+        a, masks, bmasks = _unflatten(spec, iter(static))
+        return lm_step(lambda v: residual_fn(v, *a), *state, cfg, masks, bmasks)
 
     # the step's kernels do not depend on the step count: one capture
     # serves every max_iters
-    key = ("lm_step", residual_fn, dataclasses.replace(cfg, max_iters=0), repr(spec),
-           tuple(x0.shape),
+    mode = "banded" if banded_masks is not None else "pcg" if diag_masks is not None else "lambda"
+    key = ("lm_step", mode, residual_fn, dataclasses.replace(cfg, max_iters=0),
+           repr(spec), tuple(x0.shape),
            tuple((t.shape, t.dtype, t.device) for t in leaves))
     x, lam, c = graphs.run(key, step, (x0, lam, c), leaves, cfg.max_iters)
     return x, c.squeeze(-1)

@@ -4,9 +4,8 @@ the port's copy of chd_tpu/utils/native.py.
 Builds the shared library with the host C++ compiler on first use, into
 ``build/chd_native/<content-hash>/`` under the checkout (git-ignored), and
 never into ``native/``. Callers fall back to their pure-Python paths when no
-compiler is present or the build fails: ``load_keypoint_dir`` then returns
-None. (``chd_tpu``'s ``parse_floats`` binding waits for the physics port,
-which reads its text files.)
+compiler is present or the build fails: ``load_keypoint_dir`` and
+``parse_floats`` then return None.
 """
 from __future__ import annotations
 
@@ -71,6 +70,10 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_double),
         ]
+        lib.chd_parse_floats.restype = ctypes.c_int64
+        lib.chd_parse_floats.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+        ]
         lib.chd_native_version.restype = ctypes.c_int
         _lib = lib
         return _lib
@@ -94,3 +97,18 @@ def load_keypoint_dir(files: List[str], num_joints: int = 25) -> Optional[np.nda
     if rc != 0:
         raise IOError(f"native loader failed on file #{rc}: {files[rc - 1]}")
     return out
+
+
+def parse_floats(path: str, max_vals: int) -> Optional[np.ndarray]:
+    """All numeric tokens of a whitespace file (at most ``max_vals``),
+    skipping labels; None if the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty(max_vals, dtype=np.float64)
+    n = lib.chd_parse_floats(
+        path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), max_vals
+    )
+    if n < 0:
+        raise IOError(f"cannot read {path}")
+    return out[:n]

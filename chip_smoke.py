@@ -145,9 +145,41 @@ steps replayed as CUDA graphs):
     that parses, three 67-joint BVHs, solutions and BVH joints within
     ``RUN_SOL_MAX_D`` m and ``RUN_BVH_MAX_D`` cm of the CPU's.
 
-Then it prints one JSON line on the kernels, the card's name and power limit,
-and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before the last line, and so does a machine without CUDA.
+The banded LM solve, the kernel's precision modes and the rest of the
+library:
+
+21. the kinematic batch of [15] (16 x 100, default budget, CUDA graphs)
+    with ``optimize_trajectory_batch(lm_solver="banded")``: a capturing
+    call and two timed calls (seconds, sequences/hour), the stages by CUDA
+    events with no host sync, each beside [15]'s PCG reading of this run;
+    each sequence's final stage-2 cost against PCG's (<= ``BANDED_COST_X``
+    times, or the gap printed); 3 banded LM steps eager and replayed,
+    bitwise equal, no host sync; one eager banded step under
+    ``torch.profiler`` (launches, kernels, idle share, peak memory); [14]'s
+    golden gates with the banded solve; a small ragged batch card vs CPU in
+    float64 end to end (joints within ``SMALL_F64_MAX_D`` cm);
+22. the detector's precision modes on the kernel, golden weights, at
+    ``lower``'s conv rows of 512 x 240 and on the golden dirs: for
+    "default" (1 bf16 pass), "high" (3), "highest" (6) and bf16 storage,
+    the kernel against its emulation (``fused_mlp_split_plain`` at its pass
+    count, or ``fused_mlp_bf16_plain``) and a float64 chain ("highest"
+    within ``HIGHEST_MAX_D`` of both, "high" within [3]'s bounds, the
+    single-pass modes within ``ONE_PASS_ULPS`` bf16 roundings of the largest
+    logit of their emulation), each mode's kernel time by CUDA events
+    against its emulation's, TFLOP/s, share of its bound and
+    ``detect_contacts`` launches; golden agreement >= 0.999 for "high" and
+    "highest", binary agreement with "high" >= ``MODE_AGREE_MIN`` for the
+    single-pass modes. [2]'s ``HMMA`` count covers every mode;
+23. the library surface no pipeline stage calls, card vs the port on the
+    CPU in float32 at small sizes: ``one_euro_filter``, ``skin``,
+    ``solve_basic_ik``, ``solve_jacobian_ik`` and ``solve_icp`` (without
+    nearest-point association, whose ties could part the devices), within
+    [13]'s bounds.
+
+Then it prints one JSON line on the kernels (the fused-MLP kernel in each of
+its four modes), the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
+last line, and so does a machine without CUDA.
 """
 from __future__ import annotations
 
@@ -224,6 +256,15 @@ RUN_BUDGET = {"kinematic.ik_iterations": 20, "kinematic.lm_iters": 8, "kinematic
               "physics.al_iters_height": 1, "physics.al_iters_durations": 1,
               "physics.lm_iters": 3, "physics.cg_iters": 10}
 RUN_SOL_MAX_D, RUN_BVH_MAX_D = 0.05, 2.0
+# [21]: each sequence's final stage-2 cost, banded against PCG (a gap is
+# printed, and explained in PERF.md)
+BANDED_COST_X = 1.001
+# [22]: the "highest" (6-pass) kernel against float64 and its emulation; the
+# single-pass modes against their emulation by ops.fused_mlp.single_pass_gate
+# (the mean, against the distance to the nearest other mode; its controls)
+# and within ONE_PASS_ULPS bf16 roundings (2**-8 relative) of the largest
+# logit, and their binary agreement with "high"
+HIGHEST_MAX_D, ONE_PASS_ULPS, MODE_AGREE_MIN = 1e-5, 4, 0.99
 
 
 def fail(msg: str) -> None:
@@ -381,18 +422,8 @@ def contact_phases(torch, dev, smi: str) -> dict:
         compare(f"conv {jset} {wname} V={V} F={F}", lambda mlp: mlp(*args))
 
     # -- 4. golden on the card: the main path -------------------------------
-    vids = sorted(key for key in golden.files if key.startswith("keypoints_"))
     with tempfile.TemporaryDirectory() as tmp:
-        dirs = []
-        for key in vids:
-            kpv = golden[key]
-            opd = os.path.join(tmp, f"vid{key.split('_')[1]}", "openpose_result")
-            os.makedirs(opd)
-            for f in range(kpv.shape[0]):
-                doc = {"people": [{"pose_keypoints_2d": kpv[f].reshape(-1).tolist()}]}
-                with open(os.path.join(opd, f"frame_{f:06d}_keypoints.json"), "w") as fh:
-                    json.dump(doc, fh)
-            dirs.append(os.path.dirname(opd))
+        dirs = golden_video_dirs(tmp, golden)
         fused_mlp.launches = 0
         results = infer.detect_contacts(dirs, gmodel, device="cuda",
                                         image_dims=(1920, 1080), save=True)
@@ -857,27 +888,32 @@ def synth_video_dir(root: str, skel, F: int = 12) -> str:
     return vd
 
 
-def trajectory_golden_gates(g, device, graphs=None):
+def trajectory_golden_gates(g, device, graphs=None, lm_solver="pcg"):
     """The port's solution of trajectory_golden.npz at its pinned 50:100, and
     what the gates of tests/test_goldens.py read from it: floor normal cos,
     plane offset (cm), pruned contacts equal, mean and median joint error
     (cm), median reprojection error and its bound (px), and the stage-2
     objective of both solutions, each scored by the port's residual on the
-    CPU in float32 on its own problem."""
+    CPU in float32 on its own problem. ``lm_solver="banded"`` solves the
+    same problem with the banded direct inner solve ([21])."""
     import torch
 
     from chd_tpu_torch.characters import defs
     from chd_tpu_torch.core import quat
+    from chd_tpu_torch.kinematics import batch as batch_lib
     from chd_tpu_torch.kinematics import trajectory as traj_lib
     from chd_tpu_torch.kinematics.lm import LMConfig
     from chd_tpu_torch.kinematics.residuals import Layout, TrajectoryData, trajectory_residuals
 
     parents = [int(p) for p in g["skel_parents"]]
-    res = traj_lib.optimize_trajectory(
-        g["pose2d"], g["conf"], g["pose3d"], g["root"], g["smpl_angles"], golden_skeleton(g),
-        g["vel_constraints"].astype(float), cam_focal=tuple(g["cam_focal"]),
+    # optimize_trajectory's own call, with the inner solve as an argument
+    problem = dict(pose2d=g["pose2d"], conf2d=g["conf"], pose3d=g["pose3d"],
+                   root_pos=g["root"], smpl_angles=g["smpl_angles"],
+                   vel_constraints=g["vel_constraints"].astype(float))
+    res = batch_lib.optimize_trajectory_batch(
+        [problem], golden_skeleton(g), cam_focal=tuple(g["cam_focal"]),
         cam_pp=tuple(g["cam_pp"]), lm_cfg=LMConfig(max_iters=50, cg_iters=100),
-        device=device, graphs=graphs)
+        device=device, ik_solver="lu", graphs=graphs, lm_solver=lm_solver)[0]
     F = g["pose2d"].shape[0]
     n_ref, p_ref = g["out_plane_normal"], g["out_plane_point"]
     n_got = np.asarray(res.floor_normal, np.float64)
@@ -930,8 +966,109 @@ def golden_gates_pass(gates: dict) -> bool:
             and gates["cost"] <= gates["golden_cost"] * 1.001)
 
 
-def kinematic_phases(torch, dev, smi: str) -> None:
-    """Phases [13]-[16]: the kinematic stage on the card."""
+def stage2_costs(batch_lib, arrs, consts, out, w2) -> np.ndarray:
+    """Each sequence's final stage-2 cost, ½‖r‖² in float64 of the residual
+    of the staged outputs (x0, x1, x2, normals, points, vc2): the solution
+    scored on its own floor and pruned contacts."""
+    _, _, x2, normals, points, vc2 = out
+    r = consts.layout.residual(x2, batch_lib.make_data(arrs, consts, vc2, normals, points), w2)
+    return (0.5 * (r.double() ** 2).sum(-1)).cpu().numpy()
+
+
+def wall(fn):
+    """(seconds, result) of fn() between two device syncs."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, out
+
+
+def no_sync(fn):
+    """fn() with every host sync an error (sync debug mode 'error')."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def stage_ms(ev) -> list:
+    """The milliseconds between consecutive CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+
+
+def kin_staged(batch_lib, arrs, consts, lm_cfg, graphs):
+    """The kinematic batch's stages (_refine_core's) with a CUDA event
+    between them and no host sync: ((x0, x1, x2, normals, points, vc2),
+    events of [IK, LM 1, floor, LM 2])."""
+    import torch
+
+    from chd_tpu_torch.kinematics import trajectory as traj_lib
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    zero3 = torch.zeros((arrs["vc"].shape[0], 3), device=arrs["vc"].device)
+    ev[0].record()
+    x0 = batch_lib.initial_x(*batch_lib.ik_init_batch(arrs, consts, graphs))
+    ev[1].record()
+    x1 = batch_lib.lm_stage(x0, batch_lib.make_data(arrs, consts, arrs["vc"], zero3, zero3),
+                            traj_lib.STAGE1, consts, lm_cfg, graphs)
+    ev[2].record()
+    normals, points, vc2 = batch_lib.floor_stage(x1, arrs, consts)
+    ev[3].record()
+    x2 = batch_lib.lm_stage(x1, batch_lib.make_data(arrs, consts, vc2, normals, points),
+                            traj_lib.STAGE2, consts, lm_cfg, graphs)
+    ev[4].record()
+    return (x0, x1, x2, normals, points, vc2), ev
+
+
+def profiled_step(one_step) -> dict:
+    """One eager call of ``one_step``: its wall time and peak memory above
+    what was allocated before it (GiB), then the same call under
+    torch.profiler: wall time, kernel launches, device kernels, device busy
+    time (s), idle share, and the device and host items by self time."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_step, _ = wall(one_step)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_prof, _ = wall(one_step)
+    events = prof.key_averages()
+    device_items = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False)),
+                          key=lambda e: e.self_device_time_total, reverse=True)
+    host_items = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                        key=lambda e: e.self_cpu_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in device_items) / 1e6
+    return {"t_step": t_step, "peak_gib": peak, "t_prof": t_prof,
+            "launches": sum(e.count for e in events if e.key in (
+                "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+            "kernels": sum(e.count for e in device_items), "busy": busy,
+            "idle": 1 - busy / t_prof, "device_items": device_items, "host_items": host_items}
+
+
+def print_top_items(prof: dict, what=("device",)) -> None:
+    """The six largest items by self time of each of ``what``."""
+    for w in what:
+        key = "self_device_time_total" if w == "device" else "self_cpu_time_total"
+        for e in prof[f"{w}_items"][:6]:
+            print(f"      {w} {getattr(e, key) / 1e3:8.2f} ms x{e.count:<6d} {e.key[:80]}")
+
+
+def kinematic_phases(torch, dev, smi: str) -> dict:
+    """Phases [13]-[16]: the kinematic stage on the card. Returns [15]'s PCG
+    readings, which [21] sets beside the banded solve's."""
     from chd_tpu_torch.core import bvh, fk, quat
     from chd_tpu_torch.kinematics import batch as batch_lib
     from chd_tpu_torch.kinematics import ik as ik_lib
@@ -949,13 +1086,6 @@ def kinematic_phases(torch, dev, smi: str) -> None:
     skel = golden_skeleton(g)
     parents = skel.parents
     J = len(parents)
-
-    def wall(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t, out
 
     # -- 13. core on the card ---------------------------------------------
     rng = np.random.default_rng(13)
@@ -1017,36 +1147,6 @@ def kinematic_phases(torch, dev, smi: str) -> None:
     print(f"[15] optimize_trajectory_batch, {KIN_B} sequences x {KIN_F} frames, default budget "
           f"(IK 200 x CG 64, LM 40:80 x 2 stages); {smi}")
 
-    def staged(consts, graphs):
-        """_refine_core's stages with a CUDA event between them (no host
-        sync); returns (outputs, [IK, LM 1, floor, LM 2] ms events)."""
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        x0 = batch_lib.initial_x(*batch_lib.ik_init_batch(arrs, consts, graphs))
-        ev[1].record()
-        zero3 = torch.zeros((KIN_B, 3), device=dev)
-        x1 = batch_lib.lm_stage(x0, batch_lib.make_data(arrs, consts, arrs["vc"], zero3, zero3),
-                                w1, consts, lm_cfg, graphs)
-        ev[2].record()
-        normals, points, vc2 = batch_lib.floor_stage(x1, arrs, consts)
-        ev[3].record()
-        x2 = batch_lib.lm_stage(x1, batch_lib.make_data(arrs, consts, vc2, normals, points),
-                                w2, consts, lm_cfg, graphs)
-        ev[4].record()
-        return (x0, x1, x2, normals, points, vc2), ev
-
-    def stage_ms(ev):
-        torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
-
-    def no_sync(fn):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
     # the entry point twice: the first call captures the IK iteration and
     # the LM step, the second replays them
     graphs = GraphCache()
@@ -1068,8 +1168,9 @@ def kinematic_phases(torch, dev, smi: str) -> None:
     # the same graphs stage by stage: stage times, no host sync, and the
     # entry point's own results
     consts = batch_lib.batch_consts(parents, F, ik_cfg, dev, torch.float32, graphs)
-    out_g, ev = no_sync(lambda: staged(consts, graphs))
+    out_g, ev = no_sync(lambda: kin_staged(batch_lib, arrs, consts, lm_cfg, graphs))
     graph_ms = stage_ms(ev)
+    pcg_cost2 = stage2_costs(batch_lib, arrs, consts, out_g, w2)
     x2 = out_g[2].reshape(KIN_B, F, -1)[..., :3].cpu().numpy()
     vc2 = out_g[5].cpu().numpy()
     same_call = all(np.array_equal(x2[i], r.anim.positions[:, 0])
@@ -1123,33 +1224,18 @@ def kinematic_phases(torch, dev, smi: str) -> None:
     def one_step():
         return lm_lib.lm_step(res_fn, x0, lam, c0, lm_cfg, consts.masks)
 
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t_step, _ = wall(one_step)
-    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t_prof, _ = wall(one_step)
-    events = prof.key_averages()
-    device_items = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                           and not getattr(e, "is_user_annotation", False)),
-                          key=lambda e: e.self_device_time_total, reverse=True)
-    host_items = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
-                        key=lambda e: e.self_cpu_time_total, reverse=True)
-    kernels = sum(e.count for e in device_items)
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                          "cudaLaunchKernelExC"))
-    busy = sum(e.self_device_time_total for e in device_items) / 1e6
-    per_product = kernels / (lm_cfg.cg_iters + 1 + 1)
+    st = profiled_step(one_step)
     print(f"    one eager LM step ({lm_cfg.cg_iters} CG iterations, the {3 * (3 + 3 * J)}-mask "
-          f"diagonal pass): {t_step * 1e3:.1f} ms, {peak:.2f} GiB above the "
-          f"inputs at peak; profiled: wall {t_prof * 1e3:.1f} ms, {launches} launches, "
-          f"{kernels} device kernels (~{per_product:.0f} per JtJ.v product), device busy "
-          f"{busy * 1e3:.1f} ms, idle share {1 - busy / t_prof:.3f}")
-    for what, items, key in (("host", host_items, "self_cpu_time_total"),
-                             ("device", device_items, "self_device_time_total")):
-        for e in items[:6]:
-            print(f"      {what} {getattr(e, key) / 1e3:8.2f} ms x{e.count:<6d} {e.key[:80]}")
+          f"diagonal pass): {st['t_step'] * 1e3:.1f} ms, {st['peak_gib']:.2f} GiB above the "
+          f"inputs at peak; profiled: wall {st['t_prof'] * 1e3:.1f} ms, {st['launches']} "
+          f"launches, {st['kernels']} device kernels "
+          f"(~{st['kernels'] / (lm_cfg.cg_iters + 2):.0f} per JtJ.v product), device busy "
+          f"{st['busy'] * 1e3:.1f} ms, idle share {st['idle']:.3f}")
+    print_top_items(st, ("host", "device"))
+    pcg15 = {"t_first": t_first, "t_call": t_call, "stage_ms": graph_ms,
+             "eager_step_ms": eager_ms[1] / EAGER_LM_STEPS,
+             "replayed_step_ms": rep_ms[1] / EAGER_LM_STEPS, "step": st,
+             "stage2_cost": pcg_cost2}
 
     # a small ragged batch, card against the port on the CPU
     rng = np.random.default_rng(17)
@@ -1287,6 +1373,399 @@ def kinematic_phases(torch, dev, smi: str) -> None:
         if rc != 0 or files != want_files or not (d <= CLI_MAX_D and eq
                                                    and cos >= SMALL_COS_MIN):
             fail("[16] the kinematic CLI on the card disagrees with the CPU or missed a file")
+    return pcg15
+
+
+def banded_phase(torch, dev, smi: str, pcg: dict) -> None:
+    """Phase [21]: the kinematic batch with the banded direct LM solve, at
+    [15]'s shape and budget, beside [15]'s PCG readings (``pcg``)."""
+    from chd_tpu_torch.core import fk
+    from chd_tpu_torch.kinematics import batch as batch_lib
+    from chd_tpu_torch.kinematics import lm as lm_lib
+    from chd_tpu_torch.kinematics import trajectory as traj_lib
+    from chd_tpu_torch.kinematics.ik import IKConfig
+    from chd_tpu_torch.kinematics.lm import LMConfig
+    from chd_tpu_torch.utils.cuda_graph import GraphCache
+
+    g = np.load(TRAJ_GOLDEN)
+    skel = golden_skeleton(g)
+    parents = skel.parents
+    rng = np.random.default_rng(0)
+    problems = [kin_problem(rng, skel, KIN_F) for _ in range(KIN_B)]  # [15]'s batch
+    lm_cfg = LMConfig(max_iters=40, cg_iters=80)
+    ik_cfg = IKConfig(iterations=200, damping=7.0, solver="cg")
+    w1 = traj_lib.STAGE1
+    print(f"[21] optimize_trajectory_batch(lm_solver=\"banded\"), {KIN_B} x {KIN_F}, default "
+          f"budget (IK 200 x CG 64, LM 40 steps x 2 stages, block-Thomas over "
+          f"{(KIN_F + 1) // 2} superblocks of {2 * (3 + 3 * len(parents))}); {smi}")
+    graphs = GraphCache()
+
+    def call():
+        return batch_lib.optimize_trajectory_batch(problems, skel, ik_iterations=ik_cfg.iterations,
+                                                   lm_cfg=lm_cfg, graphs=graphs,
+                                                   lm_solver="banded")
+
+    t_first, _ = wall(call)
+    captures = graphs.captures
+    t_calls = []
+    for _ in range(2):
+        t, res = wall(call)
+        t_calls.append(t)
+    print(f"    banded with CUDA graphs: first call {t_first:.3f} s ({captures} captures), then "
+          f"{t_calls[0]:.3f} and {t_calls[1]:.3f} s = {KIN_B / t_calls[0] * 3600:.0f} and "
+          f"{KIN_B / t_calls[1] * 3600:.0f} sequences/hour; PCG ([15], this run): first call "
+          f"{pcg['t_first']:.3f} s, then {pcg['t_call']:.3f} s = "
+          f"{KIN_B / pcg['t_call'] * 3600:.0f} sequences/hour")
+    finite = all(np.isfinite(r.pose3d).all() and np.isfinite(r.anim.rotations).all()
+                 for r in res)
+    if not finite or len(res) != KIN_B or res[0].pose3d.shape != (KIN_F, 28, 3):
+        fail("[21] the banded batch returned non-finite or misshapen results")
+
+    # the same graphs stage by stage: no host sync, stage times, the call's
+    # results, and each sequence's stage-2 cost against PCG's
+    arrs, F = batch_lib.prepare_batch_arrays(problems, skel, device=dev)
+    consts = batch_lib.batch_consts(parents, F, ik_cfg, dev, torch.float32, graphs,
+                                    lm_solver="banded")
+    out, ev = no_sync(lambda: kin_staged(batch_lib, arrs, consts, lm_cfg, graphs))
+    ms = stage_ms(ev)
+    root = out[2].reshape(KIN_B, F, -1)[..., :3].cpu().numpy()
+    vc2 = out[5].cpu().numpy()
+    same_call = all(np.array_equal(root[i], r.anim.positions[:, 0])
+                    and np.array_equal(vc2[i], r.vel_constraints) for i, r in enumerate(res))
+    pm = pcg["stage_ms"]
+    print(f"    replayed stage by stage (no host sync inside: sync debug mode 'error'): IK "
+          f"{ms[0]:.0f} ms, LM 1 {ms[1]:.0f} ms, floor {ms[2]:.0f} ms, LM 2 {ms[3]:.0f} ms, "
+          f"core {sum(ms) / 1e3:.2f} s (PCG [15]: {pm[0]:.0f} / {pm[1]:.0f} / {pm[2]:.0f} / "
+          f"{pm[3]:.0f} ms, {sum(pm) / 1e3:.2f} s); LM {ms[1] / lm_cfg.max_iters:.1f} ms a "
+          f"replayed step (PCG {pcg['replayed_step_ms']:.1f}); root path and pruned contacts "
+          f"equal to the call's: {same_call}")
+    if not same_call:
+        fail("[21] the staged replay differs from optimize_trajectory_batch")
+    cost2 = stage2_costs(batch_lib, arrs, consts, out, traj_lib.STAGE2)
+    ratio = cost2 / pcg["stage2_cost"]
+    over = [i for i in range(KIN_B) if not ratio[i] <= BANDED_COST_X]
+    print(f"    final stage-2 cost per sequence, banded / PCG: min {ratio.min():.6f}, max "
+          f"{ratio.max():.6f} (<= {BANDED_COST_X} on {KIN_B - len(over)} of {KIN_B}); banded "
+          f"{['%.1f' % c for c in cost2]}")
+    for i in over:
+        print(f"      GAP sequence {i}: banded {cost2[i]:.3f} vs PCG {pcg['stage2_cost'][i]:.3f} "
+              f"(x{ratio[i]:.6f})")
+    if not np.isfinite(cost2).all():
+        fail("[21] a banded stage-2 cost is not finite")
+
+    # eager against replayed: 3 banded LM steps from the IK's output
+    zero3 = torch.zeros((KIN_B, 3), device=dev)
+    data1 = batch_lib.make_data(arrs, consts, arrs["vc"], zero3, zero3)
+    short = dataclasses.replace(lm_cfg, max_iters=EAGER_LM_STEPS)
+
+    def lm3(graphs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        x = batch_lib.lm_stage(out[0], data1, w1, consts, short, graphs)
+        e1.record()
+        return x, (e0, e1)
+
+    x_e, ev = no_sync(lambda: lm3(None))
+    eager_ms = stage_ms(ev)[0] / EAGER_LM_STEPS
+    x_r, ev = no_sync(lambda: lm3(graphs))
+    rep_ms = stage_ms(ev)[0] / EAGER_LM_STEPS
+    same = torch.equal(x_e, x_r) and graphs.captures == captures
+    print(f"    eager vs replayed, {EAGER_LM_STEPS} banded LM steps: eager {eager_ms:.1f} ms a "
+          f"step (PCG [15] {pcg['eager_step_ms']:.0f}), replayed {rep_ms:.1f} ms a step; "
+          f"bitwise equal: {same}")
+    if not same:
+        fail("[21] the banded LM step's replay differs from the eager path")
+
+    # one banded LM step, eager, under the profiler
+    x0 = out[0]
+    args = lm_lib._tensor_floats((data1, w1), x0)
+    lam = torch.full((KIN_B, 1), lm_cfg.init_lambda, device=dev)
+
+    def res_fn(x):
+        return consts.layout.residual(x, *args)
+
+    c0 = lm_lib._half_sq(res_fn(x0))
+
+    def one_step():
+        return lm_lib.lm_step(res_fn, x0, lam, c0, lm_cfg, banded_masks=consts.masks)
+
+    st, pst = profiled_step(one_step), pcg["step"]
+    print(f"    one eager banded LM step ({consts.masks.shape[0]} banded products, "
+          f"{(F + 1) // 2} Cholesky steps): {st['t_step'] * 1e3:.1f} ms, {st['peak_gib']:.2f} "
+          f"GiB above the inputs at peak (PCG [15] {pst['peak_gib']:.2f}); profiled: wall "
+          f"{st['t_prof'] * 1e3:.1f} ms, {st['launches']} launches, {st['kernels']} device "
+          f"kernels (PCG {pst['launches']} and {pst['kernels']}), device busy "
+          f"{st['busy'] * 1e3:.1f} ms, idle share {st['idle']:.3f} (PCG {pst['idle']:.3f})")
+    print_top_items(st)
+
+    # [14]'s golden gates with the banded solve
+    t14, (_, gates) = wall(lambda: trajectory_golden_gates(g, "cuda", GraphCache(), "banded"))
+    print(f"    trajectory golden with lm_solver=\"banded\" (LM 50 steps): {t14:.2f} s with "
+          f"capture; floor cos {gates['cos']:.6f} (> 0.9994), offset {gates['offset']:.3f} cm "
+          f"(< 2), contacts equal {gates['contacts_equal']}, joint error mean "
+          f"{gates['mean_err']:.3f} / median {gates['median_err']:.3f} cm (< 2), reprojection "
+          f"median {gates['median_px']:.2f} px (< {gates['px_bound']:.2f}), stage-2 objective "
+          f"{gates['cost']:.1f} vs the golden's {gates['golden_cost']:.1f} (<= x1.001)")
+    if not golden_gates_pass(gates):
+        fail(f"[21] the trajectory golden's gates failed with the banded solve: {gates}")
+
+    # a small ragged batch, card against the port on the CPU, float64
+    rng = np.random.default_rng(17)
+    small = [kin_problem(rng, skel, 16, 0.3), kin_problem(rng, skel, 12, 0.3)]
+    kw = dict(ik_iterations=10, lm_cfg=LMConfig(5, 15), ik_solver="lu", dtype=torch.float64,
+              lm_solver="banded")
+    on_card = batch_lib.optimize_trajectory_batch(small, skel, device="cuda", **kw)
+    on_cpu = batch_lib.optimize_trajectory_batch(small, skel, device="cpu", **kw)
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        ja, jb = (fk.positions_global(torch.as_tensor(r.anim.rotations),
+                                      torch.as_tensor(r.anim.positions), parents).numpy()
+                  for r in (a, b))
+        d = float(np.abs(ja - jb).max())
+        eq = bool(np.array_equal(a.vel_constraints, b.vel_constraints))
+        cos = float(a.floor_normal @ b.floor_normal)
+        print(f"    small banded batch (16 and 12 frames, IK 10 LU, LM 5 steps, float64) "
+              f"sequence {i}, card vs CPU end to end: joints max|d| {d:.3e} cm (<= "
+              f"{SMALL_F64_MAX_D}), pruned contacts equal {eq}, floor normal cos {cos:.10f} "
+              f"(>= {SMALL_COS_MIN})")
+        if not (d <= SMALL_F64_MAX_D and eq and cos >= SMALL_COS_MIN):
+            fail(f"[21] small banded batch sequence {i}: the card and the CPU disagree")
+
+
+def golden_video_dirs(tmp: str, golden) -> list:
+    """The golden's videos as OpenPose dirs under ``tmp`` ([4]'s layout)."""
+    dirs = []
+    for key in sorted(k for k in golden.files if k.startswith("keypoints_")):
+        kpv = golden[key]
+        opd = os.path.join(tmp, f"vid{key.split('_')[1]}", "openpose_result")
+        os.makedirs(opd)
+        for f in range(kpv.shape[0]):
+            doc = {"people": [{"pose_keypoints_2d": kpv[f].reshape(-1).tolist()}]}
+            with open(os.path.join(opd, f"frame_{f:06d}_keypoints.json"), "w") as fh:
+                json.dump(doc, fh)
+        dirs.append(os.path.dirname(opd))
+    return dirs
+
+
+def precision_phase(torch, dev, smi: str) -> list:
+    """Phase [22]: the detector's precision modes on the kernel. Returns the
+    kernel line's entries of the modes other than "high" ([5]'s)."""
+    from chd_tpu_torch.contact import infer
+    from chd_tpu_torch.models import torch_convert
+    from chd_tpu_torch.ops import fused_mlp as fm
+    from chd_tpu_torch.ops import gapfill
+
+    golden = np.load(GOLDEN)
+    gmodel = torch_convert.from_state_dict(
+        {key[3:]: golden[key] for key in golden.files if key.startswith("sd.")})
+    big = torch.from_numpy(synth_videos(BIG_V, BIG_F, seed=0)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = golden_video_dirs(tmp, golden)
+        print(f"[22] the detector's precision modes on the kernel, golden weights, conv rows of "
+              f"V={BIG_V} F={BIG_F} and the {len(dirs)} golden dirs; {smi}")
+
+        def event_ms(mlp, args, reps: int = 10) -> float:
+            mlp(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                mlp(*args)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / reps
+
+        entries, contacts, golden_contacts = [], {}, {}
+        for mode in fm.MODES:
+            precision, dt = (mode, None) if mode != "bf16" else ("high", torch.bfloat16)
+            det = infer.ContactDetector(gmodel, device=dev, precision=precision, mlp_dtype=dt)
+            joints, root, appended = infer.subset_joints(det.kw["joint_subset"])
+            x = gapfill.preprocess_keypoints(big[:, :, joints], det.kw["conf_thresh"],
+                                             det.kw["normalization"])
+            args = infer.mlp_logits(x, det.layers, window_size=det.kw["window_size"],
+                                    root_in_subset=root, root_appended=appended,
+                                    use_confidence=det.kw["use_confidence"],
+                                    use_conv=det.kw["use_conv"], mlp=lambda *a: a)
+            got = fm.fused_mlp(*args)
+            emu = fm.emulation(mode)(*args)
+            layers, frames2d, width, row_stride = args
+            exact = fm.fused_mlp_plain([(w.double(), b.double()) for w, b in layers],
+                                       frames2d.double(), width, row_stride)
+            torch.cuda.synchronize()
+            e_emu = (got - emu).abs().max().item()
+            e_f64 = (got.double() - exact).abs().max().item()
+            if mode == "high":
+                bound_emu, ok_emu = f"atol {5e-5} rtol {1e-5}", bool(
+                    torch.allclose(got, emu, atol=5e-5, rtol=1e-5))
+                bound_f64 = F64_MAX_D
+            elif mode == "highest":
+                bound_emu = bound_f64 = HIGHEST_MAX_D
+                ok_emu = e_emu <= HIGHEST_MAX_D
+            else:
+                # one bf16 pass is not float64-accurate: its distance to
+                # float64 is printed, the gate is its emulation's
+                cap = ONE_PASS_ULPS * 2.0 ** -8 * emu.abs().max().item()
+                gate = fm.single_pass_gate(got, *args, mode)
+                bound_emu, bound_f64 = f"{cap:.3e}", None
+                ok_emu = e_emu <= cap and gate["ok"] and gate["controls_fail"]
+                print(f"    {mode}: single_pass_gate, mean |kernel - emulation| by mode "
+                      f"(limit 1/{fm.GATE_SHARE} of that emulation's mean distance to the "
+                      f"nearest other's): " + ", ".join(
+                          f"{n} {gate['mean'][n]:.3e} (limit {gate['limit'][n]:.3e})"
+                          for n in fm.MODES)
+                      + f"; within its own: {gate['ok']}, the controls fail: "
+                      f"{gate['controls_fail']}")
+            ok_f64 = bound_f64 is None or e_f64 <= bound_f64
+            # the kernel alone, against the mode's plain version, in turns
+            p1 = event_ms(fm.emulation(mode), args)
+            k1, k2 = event_ms(fm.fused_mlp, args), event_ms(fm.fused_mlp, args)
+            p2 = event_ms(fm.emulation(mode), args)
+            ms, p_ms = statistics.mean([k1, k2]), statistics.mean([p1, p2])
+            rows = frames2d.shape[0] * ((frames2d.shape[1] - width) // row_stride + 1)
+            dims = [width] + [w.shape[1] for w, _ in layers]
+            macs = [a * b for a, b in zip(dims, dims[1:])]
+            tc_flop = fm.PASSES[mode] * 2 * rows * sum(macs[:3])
+            cc_flop = 2 * rows * sum(macs[3:])
+            n_bytes = (frames2d.numel() + sum(w.numel() + b.numel() for w, b in layers)
+                       + rows * dims[-1]) * 4
+            ops_ms = (tc_flop / BF16_PEAK + cc_flop / F32_PEAK) * 1e3
+            bound_ms = max(ops_ms, n_bytes / HBM_RATE * 1e3)
+            bound_by = "operations" if ops_ms >= n_bytes / HBM_RATE * 1e3 else "bytes"
+            # the main path in this mode, its launches counted alone
+            contacts[mode], _ = det.infer(big)
+            fm.fused_mlp.launches = 0
+            fm.fused_mlp.mode_launches = dict.fromkeys(fm.MODES, 0)
+            golden_contacts[mode] = infer.detect_contacts(dirs, gmodel, device="cuda", save=False,
+                                                          precision=precision, mlp_dtype=dt)
+            torch.cuda.synchronize()
+            launches = fm.fused_mlp.mode_launches[mode]
+            agree = [float((c.astype(int) == golden[f"contacts_{i}"].astype(int)).mean())
+                     for i, c in enumerate(golden_contacts[mode])]
+            print(f"    {mode} ({fm.PASSES[mode]} pass{'es' if fm.PASSES[mode] > 1 else ''}"
+                  f"{', bf16 storage' if mode == 'bf16' else ''}): kernel vs its emulation max|d| "
+                  f"{e_emu:.3e} (bound {bound_emu}: {ok_emu}), vs float64 {e_f64:.3e} "
+                  f"({'bound ' + str(bound_f64) if bound_f64 else 'printed only'}); kernel "
+                  f"{ms:.3f} ms ({k1:.3f}, {k2:.3f}), emulation {p_ms:.3f} ms; "
+                  f"{2 * rows * sum(macs) / ms / 1e9:.1f} TFLOP/s of the model's multiply-adds, "
+                  f"{(tc_flop + cc_flop) / ms / 1e9:.1f} executed; bound {bound_ms:.3f} ms "
+                  f"({bound_by}: {tc_flop / 1e9:.1f} GFLOP on tensor cores + "
+                  f"{cc_flop / 1e9:.2f} GFLOP float32), {bound_ms / ms:.3f} of it reached; "
+                  f"detect_contacts launches {launches}, golden agreement "
+                  f"{['%.6f' % a for a in agree]}")
+            if not ok_emu:
+                fail(f"[22] {mode}: the kernel disagrees with its emulation ({e_emu})")
+            if not ok_f64:
+                fail(f"[22] {mode}: the kernel is {e_f64} from a float64 chain")
+            if launches < 1:
+                fail(f"[22] detect_contacts in mode {mode} never launched the kernel")
+            if mode in ("high", "highest") and min(agree) < AGREE_MIN:
+                fail(f"[22] {mode}: golden agreement {agree}")
+            if mode != "high":
+                entries.append({
+                    "name": f"fused_mlp[{mode}]", "mode": mode, "route": "cuda",
+                    "source": "chd_tpu_torch/csrc/fused_mlp.cu",
+                    "replaces": "chd_tpu/ops/pallas_mlp.py:26", "launches": launches,
+                    "max_abs_err": e_emu, "ms": ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+        for mode in ("default", "bf16"):
+            a_big = float((contacts[mode] == contacts["high"]).float().mean())
+            a_gold = min(float((a == b).mean())
+                         for a, b in zip(golden_contacts[mode], golden_contacts["high"]))
+            print(f"    {mode}: binary agreement with high, V={BIG_V} batch {a_big:.6f}, "
+                  f"golden dirs {a_gold:.6f} (>= {MODE_AGREE_MIN})")
+            if min(a_big, a_gold) < MODE_AGREE_MIN:
+                fail(f"[22] {mode}: binary agreement with high {a_big}, {a_gold}")
+    return entries
+
+
+def library_phase(torch, dev) -> None:
+    """Phase [23]: the library surface that no pipeline stage calls, card
+    against the port on the CPU in float32, at small sizes."""
+    from chd_tpu_torch.core import fk, quat, skinning
+    from chd_tpu_torch.core.animation import Animation
+    from chd_tpu_torch.ingest import one_euro
+    from chd_tpu_torch.kinematics import basic_ik, icp
+    from chd_tpu_torch.kinematics.ik import IKConfig
+
+    g = np.load(TRAJ_GOLDEN)
+    skel = golden_skeleton(g)
+    parents, J = skel.parents, len(skel.parents)
+    rng = np.random.default_rng(23)
+    print(f"[23] the library surface, card vs the port on the CPU, float32 (bounds: "
+          f"{CORE_ATOL} on unit quaternions, {CORE_POS_ATOL} cm on positions)")
+    F = 4
+    es = rng.uniform(-0.3, 0.3, size=(F, J, 3)).astype(np.float32)
+    pos = np.broadcast_to(np.asarray(skel.offsets, np.float32), (F, J, 3)).copy()
+    pos[:, 0] = rng.normal(0, 10, size=(F, 3)) + [0, 90, 300]
+    rest = Animation(np.asarray(skel.rotations[:1], np.float32),
+                     np.asarray(skel.positions[:1], np.float32), skel.orients, skel.offsets,
+                     parents)
+
+    def anim_on(d):
+        return Animation(quat.from_euler(torch.from_numpy(es), "xyz", True).to(d),
+                         torch.from_numpy(pos).to(d), skel.orients, skel.offsets, parents)
+
+    def world(a):
+        return fk.positions_global(a.rotations, a.positions, parents)
+
+    gp = world(anim_on("cpu")).numpy()
+    V = 200
+    w = np.zeros((V, J), np.float32)
+    for v in range(V):
+        js = rng.choice(J, size=3, replace=False)
+        w[v, js] = rng.uniform(0.1, 1.0, size=3)
+    mesh = (rng.normal(0, 30, size=(V, 3)) + [0, 90, 300]).astype(np.float32)
+    targets = {j: gp[:, j] + rng.normal(0, 2.0, size=(F, 3)).astype(np.float32)
+               for j in (4, 7, 11, 14, 22)}
+    tgt_all = gp + rng.normal(0, 3.0, size=gp.shape).astype(np.float32)
+    track = (rng.normal(size=(120, 25, 2)) * 20 + 500).astype(np.float32)
+    chain = (-1, 0, 1, 2)
+    offsets = np.zeros((4, 3), np.float32)
+    offsets[1:, 0] = 1.0
+    crest = Animation(np.tile(np.float32([1, 0, 0, 0]), (2, 4, 1)),
+                      np.broadcast_to(offsets[None], (2, 4, 3)).copy(), np.zeros((4, 4)),
+                      offsets, chain)
+    cmesh = np.zeros((12, 3), np.float32)
+    cmesh[:, 0] = np.linspace(0.2, 3.2, 12)
+    cmesh[:, 1] = 0.05
+    cw = np.zeros((12, 4), np.float32)
+    cw[np.arange(12), np.clip(cmesh[:, 0].astype(int), 0, 3)] = 1.0
+    ces = rng.uniform(-0.25, 0.25, size=(2, 4, 3)).astype(np.float32)
+    posed = crest.replace(rotations=quat.from_euler(torch.from_numpy(ces), "xyz", True),
+                          positions=torch.from_numpy(crest.positions))
+    goal = skinning.skin(posed, crest, cw, cmesh, maxjoints=1).numpy()
+
+    def on(d, a):
+        return Animation(torch.as_tensor(np.asarray(a.rotations)).to(d),
+                         torch.as_tensor(np.asarray(a.positions)).to(d), a.orients, a.offsets,
+                         a.parents)
+
+    cases = {
+        "one_euro_filter (120 frames x 25 x 2, px)": (
+            lambda d: one_euro.one_euro_filter(torch.from_numpy(track).to(d),
+                                               timestamps=np.arange(120)), CORE_POS_ATOL),
+        "skin (28 joints, 200 vertices, cm)": (
+            lambda d: skinning.skin(anim_on(d), rest, w, mesh), CORE_POS_ATOL),
+        "solve_basic_ik, 2 iterations: rotations": (
+            lambda d: basic_ik.solve_basic_ik(anim_on(d), tgt_all, 2).rotations, CORE_ATOL),
+        "solve_jacobian_ik, 5 iterations: rotations": (
+            lambda d: basic_ik.solve_jacobian_ik(anim_on(d), targets,
+                                                 IKConfig(iterations=5, damping=5.0)).rotations,
+            CORE_ATOL),
+        "solve_jacobian_ik, 5 iterations: joints (cm)": (
+            lambda d: world(basic_ik.solve_jacobian_ik(
+                anim_on(d), targets, IKConfig(iterations=5, damping=5.0))), CORE_POS_ATOL),
+        "solve_icp (4-joint chain, 10 iterations): rotations": (
+            lambda d: icp.solve_icp(on(d, crest), crest, cw, cmesh, goal,
+                                    IKConfig(iterations=10, damping=3.0), maxjoints=1,
+                                    find_closest=False).rotations, CORE_ATOL),
+    }
+    for name, (fn, bound) in cases.items():
+        got = fn(dev)
+        want = fn("cpu")
+        dv = float((got.cpu() - want).abs().max())
+        print(f"    {name}: max|d| {dv:.3e} (<= {bound}); on {got.device}, {got.dtype}")
+        if not (dv <= bound and got.device.type == "cuda" and got.dtype == torch.float32):
+            fail(f"[23] {name}: card and CPU differ by {dv}")
 
 
 def phys_fit_golden_gates(device, graphs=None) -> dict:
@@ -1396,21 +1875,6 @@ def physics_phases(torch, dev, smi: str) -> None:
     from chd_tpu_torch.pipeline import cli
     from chd_tpu_torch.utils.cuda_graph import GraphCache
     from chd_tpu_torch.utils.precision import full_f32
-
-    def wall(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t, out
-
-    def no_sync(fn):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
 
     f32 = torch.float32
     weights, cfg = PhysWeights(), co.SolveConfig()
@@ -1612,28 +2076,14 @@ def physics_phases(torch, dev, smi: str) -> None:
         with full_f32():
             return lm_lib.lm_step(res_fn, x_dyn, lam, c0, cfg.lm, masks)
 
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t_step, _ = wall(one_step)
-    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t_prof, _ = wall(one_step)
-    items = prof.key_averages()
-    device_items = sorted((e for e in items if e.device_type == torch.autograd.DeviceType.CUDA
-                           and not getattr(e, "is_user_annotation", False)),
-                          key=lambda e: e.self_device_time_total, reverse=True)
-    kernels = sum(e.count for e in device_items)
-    launches = sum(e.count for e in items if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                         "cudaLaunchKernelExC"))
-    busy = sum(e.self_device_time_total for e in device_items) / 1e6
+    st = profiled_step(one_step)
     print(f"    one eager DYN_H LM step ({cfg.lm.cg_iters} CG iterations, the "
-          f"{masks.shape[0]}-mask diagonal pass): {t_step * 1e3:.1f} ms, {peak:.2f} GiB above the "
-          f"inputs at peak; profiled: wall {t_prof * 1e3:.1f} ms, {launches} launches, {kernels} "
-          f"device kernels (~{kernels / (cfg.lm.cg_iters + 2):.0f} per JtJ.v product), device "
-          f"busy {busy * 1e3:.1f} ms, idle share {1 - busy / t_prof:.3f}")
-    for e in device_items[:6]:
-        print(f"      device {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<6d} {e.key[:80]}")
+          f"{masks.shape[0]}-mask diagonal pass): {st['t_step'] * 1e3:.1f} ms, "
+          f"{st['peak_gib']:.2f} GiB above the inputs at peak; profiled: wall "
+          f"{st['t_prof'] * 1e3:.1f} ms, {st['launches']} launches, {st['kernels']} device "
+          f"kernels (~{st['kernels'] / (cfg.lm.cg_iters + 2):.0f} per JtJ.v product), device "
+          f"busy {st['busy'] * 1e3:.1f} ms, idle share {st['idle']:.3f}")
+    print_top_items(st)
 
     # a small ragged batch, card against the port on the CPU
     small = [walking_input(24, seed=0), walking_input(20, seed=1)]
@@ -1814,12 +2264,16 @@ def main() -> None:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     entry = contact_phases(torch, dev, smi)
-    kinematic_phases(torch, dev, smi)
+    entry["mode"] = "high"
+    pcg = kinematic_phases(torch, dev, smi)
     physics_phases(torch, dev, smi)
+    banded_phase(torch, dev, smi, pcg)
+    modes = precision_phase(torch, dev, smi)
+    library_phase(torch, dev)
 
     if "jax" in sys.modules or any(m.split(".")[0] == "chd_tpu" for m in sys.modules):
         fail("jax or chd_tpu was imported")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry] + modes}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -18,7 +18,7 @@ from chd_tpu.characters.defs import OP_JOINT_SUBSETS
 from chd_tpu.contact import data as jax_data
 from chd_tpu.ops import windows as jax_windows
 from chd_tpu.utils import metrics as jax_metrics
-from chd_tpu_torch.contact import data
+from chd_tpu_torch.contact import data, synth
 from chd_tpu_torch.ops import windows
 from chd_tpu_torch.utils import metrics
 from test_eval_ckpt import make_dataset
@@ -47,7 +47,7 @@ def test_reference_split_matches_jax(chars, motions, views, frac):
 
 def test_dataset_load_matches_jax(tmp_path):
     want = make_dataset(tmp_path, np.random.default_rng(0))
-    got = data.ContactDataset.load(str(tmp_path / "synth"))
+    got = data.ContactDataset.load(str(tmp_path / "synth"), device="cpu")
     assert got.normalization == want.normalization
     assert got.splits == want.splits and got.names == want.names
     assert got.num_frames == want.num_frames == 30
@@ -67,7 +67,19 @@ def test_dataset_load_rejects_a_ragged_grid(tmp_path):
     (motion / "view2").mkdir()
     shutil.copytree(motion / "keypoints_view1", motion / "keypoints_view2")
     with pytest.raises(ValueError, match="ragged"):
+        data.ContactDataset.load(str(tmp_path / "synth"), device="cpu")
+
+
+def test_dataset_entry_points_default_to_cuda(tmp_path):
+    """ContactDataset.load and synth.learnable_dataset run on the card
+    unless asked for the CPU, so they raise where CUDA is absent."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the test is of a machine without it")
+    make_dataset(tmp_path, np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         data.ContactDataset.load(str(tmp_path / "synth"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synth.learnable_dataset(n_seq=4, frames=20)
 
 
 @pytest.mark.parametrize("overlap", [False, True])

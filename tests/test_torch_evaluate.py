@@ -34,7 +34,7 @@ W, P = 9, 5
 def tree(tmp_path_factory):
     path = tmp_path_factory.mktemp("tree")
     want = make_dataset(path, np.random.default_rng(0))
-    return str(path / "synth"), want, ContactDataset.load(str(path / "synth"))
+    return str(path / "synth"), want, ContactDataset.load(str(path / "synth"), device="cpu")
 
 
 def _weights(joint_set, seed=0):

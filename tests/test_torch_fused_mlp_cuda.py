@@ -13,6 +13,19 @@ exact products in float32 through cuBLAS, where the tensor cores add each
 k16 step's products with their own internal rounding (~1.4e-5 measured at
 4096 rows on an H100). Rows are bitwise the same whatever batch they are in,
 because every row runs the same code in a fixed order.
+
+The other modes of the kernel, each against its emulation
+(``ops.fused_mlp.emulation``): "highest" (6 bf16 passes) within 1e-5 of
+``fused_mlp_split_plain(passes=6)`` and of a float64 chain; the single-pass
+modes ("default" against ``fused_mlp_split_plain(passes=1)``, bf16 storage
+against ``fused_mlp_bf16_plain``) by ``single_pass_gate``, as
+``chip_smoke.py`` [22] holds them: the mean |difference| at most 1/8 of the
+mean distance from that emulation to the nearest other mode's, every other
+mode's emulation failing the same gate, and the largest difference within
+four bf16 roundings (4 * 2**-8) of the largest emulated logit. One pass
+sums in another order than the emulation, so a hidden value can round to
+the neighbouring bf16: the largest difference alone does not tell the
+modes apart, the mean does.
 """
 import numpy as np
 import pytest
@@ -22,8 +35,9 @@ from chd_tpu.characters.defs import OP_JOINT_SUBSETS
 from chd_tpu_torch.contact import infer
 from chd_tpu_torch.models import contact_mlp
 from chd_tpu_torch.ops import gapfill
-from chd_tpu_torch.ops.fused_mlp import (D0_MAX, MlpLayers, fused_mlp, fused_mlp_plain,
-                                         fused_mlp_split_plain)
+from chd_tpu_torch.ops.fused_mlp import (D0_MAX, MODES, MlpLayers, emulation, fused_mlp,
+                                         fused_mlp_plain, fused_mlp_split_plain,
+                                         single_pass_gate)
 
 pytestmark = pytest.mark.cuda
 
@@ -174,3 +188,53 @@ def test_detector_rows_do_not_depend_on_the_batch(model, use_conv):
     for v in range(V):
         c1, p1 = det.infer(torch.from_numpy(kp[v:v + 1]))
         assert torch.equal(c1[0], c_all[v]) and torch.equal(p1[0], p_all[v])
+
+
+def _assert_mode_close(mode, got, layers, args):
+    want = emulation(mode)(layers, *args)
+    d = (got - want).abs().max().item()
+    if mode == "high":
+        torch.testing.assert_close(got, want, atol=SPLIT_ATOL, rtol=SPLIT_RTOL)
+    elif mode == "highest":
+        assert d <= 1e-5, d
+        exact = fused_mlp_plain([(w.double(), b.double()) for w, b in layers],
+                                args[0].double(), *args[1:])
+        assert (got.double() - exact).abs().max().item() <= 1e-5
+    else:
+        assert d <= 4 * 2.0 ** -8 * want.abs().max().item(), d
+        gate = single_pass_gate(got, layers, *args, mode)
+        assert gate["ok"] and gate["controls_fail"], gate
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("joint_set,use_conv", [("lower", True), ("lower", False),
+                                                ("full", True)])
+def test_each_mode_against_its_emulation(model, mode, joint_set, use_conv):
+    """Every instantiation of the kernel: the detector's rows (strided or
+    dense, and full's slabs) in each mode, against the mode's emulation,
+    rows bitwise the same alone, and the launch counted under its mode."""
+    cfg = contact_mlp.ModelConfig(num_joints=len(OP_JOINT_SUBSETS[joint_set]))
+    m = model if joint_set == "lower" else contact_mlp.init(
+        cfg, torch.Generator().manual_seed(1)).eval()
+    precision, dt = (mode, None) if mode != "bf16" else ("high", torch.bfloat16)
+    det = infer.ContactDetector(m, device="cuda", joint_set=joint_set, use_conv=use_conv,
+                                precision=precision, mlp_dtype=dt)
+    assert det.layers.mode == mode
+    rng = np.random.default_rng(6)
+    kp = np.empty((4, 80, 25, 3), np.float32)
+    kp[..., 0] = rng.uniform(200, 1100, size=kp.shape[:3])
+    kp[..., 1] = rng.uniform(100, 650, size=kp.shape[:3])
+    kp[..., 2] = rng.uniform(0.0, 1.0, size=kp.shape[:3])
+    joints, root, appended = infer.subset_joints(det.kw["joint_subset"])
+    x = gapfill.preprocess_keypoints(torch.from_numpy(kp).cuda()[:, :, joints], 0.2, 200.0)
+    layers, rows, width, stride = infer.mlp_logits(
+        x, det.layers, window_size=9, root_in_subset=root, root_appended=appended,
+        use_confidence=True, use_conv=use_conv, mlp=lambda *a: a)
+    before = dict(fused_mlp.mode_launches)
+    got = fused_mlp(layers, rows, width, stride)
+    torch.cuda.synchronize()
+    assert fused_mlp.mode_launches[mode] == before[mode] + 1
+    assert layers.packed().shape[1] == {"default": 1, "high": 2, "highest": 3, "bf16": 1}[mode]
+    _assert_mode_close(mode, got, layers, (rows, width, stride))
+    one = fused_mlp(layers, rows[:1].contiguous(), width, stride)
+    assert torch.equal(one, got[:one.shape[0]])

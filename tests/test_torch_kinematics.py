@@ -46,6 +46,15 @@ D = 3 + 3 * J
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU solves, as the other solver
+    files set it: a process that has run one of them at one thread hangs in
+    its next batched LU (``torch.linalg.solve_ex``) if the count is raised
+    again, so none raises it."""
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _drop_jax_executables():
     yield
     jax.clear_caches()

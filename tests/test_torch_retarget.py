@@ -38,11 +38,10 @@ YBOT = os.path.join(FIXTURES, "ybot", "motion.bvh")
 def _one_torch_thread():
     """One intra-op thread for the port's CPU solves: they are many small
     ops, whose every parallel region stalls when the other test workers
-    hold the cores."""
-    n = torch.get_num_threads()
+    hold the cores.
+    Not raised again after the module: in one process, a count raised back
+    makes MKL's next batched LU (``torch.linalg.solve_ex``) hang."""
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -135,7 +135,7 @@ def test_train_step_matches_a_jax_step():
     it, so elements with |g| < 1e-6 are held to 2 * lr, the rest to 1e-6."""
     params, state = random_params(np.random.default_rng(4))
     cfg_w, cfg = jax_train.TrainConfig(), train.TrainConfig()
-    ds = synth.learnable_dataset(n_seq=16, frames=40)
+    ds = synth.learnable_dataset(n_seq=16, frames=40, device="cpu")
     op, ct = (jnp.asarray(t.numpy()) for t in ds.split_arrays("train"))
     tx = jax_train.make_optimizer(cfg_w)
     rng = jax.random.PRNGKey(9)
@@ -201,7 +201,7 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
     """A run resumed from a checkpoint takes the same next step, bitwise, as
     the run that never stopped."""
     cfg = train.TrainConfig(batch_size=4)
-    ds = synth.learnable_dataset(n_seq=16, frames=40)
+    ds = synth.learnable_dataset(n_seq=16, frames=40, device="cpu")
     op, ct = ds.split_arrays("train")
 
     def fresh(seed):
@@ -234,7 +234,7 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 def test_train_takes_a_tail_batch_of_one(tmp_path):
     """18 training sequences in batches of 17 leave a batch of one each
     epoch; train() runs it and writes the three weight files."""
-    ds = synth.learnable_dataset(n_seq=22, frames=30)
+    ds = synth.learnable_dataset(n_seq=22, frames=30, device="cpu")
     cfg = train.TrainConfig(epochs=3, batch_size=17, val_every=1)
     model, hist = train.train(ds, cfg, out_dir=str(tmp_path), log_every=1, verbose=False)
     assert not model.training
@@ -250,7 +250,7 @@ def test_training_learns_contacts():
     """The port of tests/test_train_learns.py (no JAX): on a dataset whose
     contacts are a simple function of the pose, merged full-video F1 and
     accuracy pass 0.8."""
-    ds = synth.learnable_dataset()
+    ds = synth.learnable_dataset(device="cpu")
     cfg = train.TrainConfig(epochs=150, batch_size=16, val_every=50, lr=3e-4)
     model, _ = train.train(ds, cfg, verbose=False)
     res = evaluate_full_video(model, ds, split="test", cfg=cfg)
