@@ -14,6 +14,15 @@ import numpy as np
 
 # --- BODY_25 (OpenPose) and SMPL roots ---------------------------------------
 BODY_25_ROOT_IDX = 8
+# BODY_25's bones, as (a, b) joint pairs (viz.keypoints2d draws them)
+BODY_25_ADJ_LIST = np.array(
+    [
+        [1, 8], [1, 2], [1, 5], [2, 3], [3, 4], [5, 6], [6, 7], [8, 9],
+        [9, 10], [10, 11], [8, 12], [12, 13], [13, 14], [1, 0], [0, 15],
+        [15, 17], [0, 16], [16, 18], [14, 19], [19, 20], [14, 21], [11, 22],
+        [22, 23], [11, 24],
+    ]
+)
 SMPL_ROOT_IDX = 0
 SMPL_SPINE_JOINTS = np.array([3, 6, 9])
 

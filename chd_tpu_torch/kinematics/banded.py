@@ -32,10 +32,13 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 def coloring_masks(num_frames: int, dofs_per_frame: int, bandwidth: int = 2,
-                   dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """(dofs_per_frame·(2·bandwidth+1), F·D) tangent masks.
+                   dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """(dofs_per_frame·(2·bandwidth+1), F·D) tangent masks, on ``device``
+    (default ``cuda``; raises where CUDA is absent).
 
     Stride 2·bandwidth+1 guarantees each JᵀJ row window (±bandwidth frames)
     contains at most one colored frame, so products recover exact block
@@ -49,7 +52,7 @@ def coloring_masks(num_frames: int, dofs_per_frame: int, bandwidth: int = 2,
         for c in range(stride):
             frames = np.arange(c, num_frames, stride)
             masks[d * stride + c, frames * dofs_per_frame + d] = 1.0
-    return torch.as_tensor(masks, dtype=dtype, device=device)
+    return torch.as_tensor(masks, dtype=dtype, device=resolve_device(device))
 
 
 def banded_jtj(jtjv: Callable, masks: torch.Tensor, batch: int, num_frames: int,

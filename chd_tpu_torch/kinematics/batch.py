@@ -85,10 +85,11 @@ def batch_consts(parents, num_frames: int, ik_cfg: IKConfig, device, dtype,
 
 
 def prepare_batch_arrays(problems: Sequence[dict], skeleton: Animation, cam_focal=defs.MTC_FOCAL,
-                         cam_pp=defs.MTC_PP, device="cpu", dtype=torch.float32):
+                         cam_pp=defs.MTC_PP, device="cuda", dtype=torch.float32):
     """Host-side per-sequence prep: bone fit, weights and padding, stacked
-    and copied to ``device``: the dict ``_refine_core`` consumes. Returns
-    (arrs, F)."""
+    and copied to ``device`` (default ``cuda``; raises where CUDA is
+    absent): the dict ``_refine_core`` consumes. Returns (arrs, F)."""
+    device = resolve_device(device)
     parents = tuple(skeleton.parents)
     J = len(parents)
     F = max(p["pose2d"].shape[0] for p in problems)

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..utils.cuda_graph import GraphCache
+from ..utils.device import resolve_device
 from . import banded as banded_lib
 
 
@@ -62,8 +63,9 @@ class LMConfig:
 
 
 def frame_coloring_masks(num_frames: int, dofs_per_frame: int, bandwidth: int = 2,
-                         dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """(dofs_per_frame·(bandwidth+1), n) tangent masks for exact diag(JᵀJ).
+                         dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """(dofs_per_frame·(bandwidth+1), n) tangent masks for exact diag(JᵀJ),
+    on ``device`` (default ``cuda``; raises where CUDA is absent).
 
     bandwidth = max |f−f'| such that some residual couples frames f and f'
     (2 for the trajectory objective: the acceleration term spans 3 frames).
@@ -75,7 +77,7 @@ def frame_coloring_masks(num_frames: int, dofs_per_frame: int, bandwidth: int = 
         for c in range(C):
             frames = np.arange(c, num_frames, C)
             masks[d * C + c, frames * dofs_per_frame + d] = 1.0
-    return torch.as_tensor(masks, dtype=dtype, device=device)
+    return torch.as_tensor(masks, dtype=dtype, device=resolve_device(device))
 
 
 def _pcg(matvec: Callable, b: torch.Tensor, inv_diag: torch.Tensor, iters: int) -> torch.Tensor:

@@ -15,9 +15,14 @@ Ported so far:
 - ``train-contacts``: contact-model training on the synthetic dataset,
   writing ``contact_weights.npz``, ``_BEST.npz`` and ``_FINAL.npz``;
 - ``eval-contacts``: its evaluation, writing ``eval_results.json`` and, with
-  ``--full-video``, ``merged_predictions.npy``.
-The files are ``chd_tpu``'s. ``--device`` names the device and defaults to
-``cuda``, which raises where CUDA is absent.
+  ``--full-video``, ``merged_predictions.npy``;
+- ``openpose`` and ``totalcap``: the external OpenPose and MTC binaries per
+  video dir (``pipeline/external.py``);
+- ``make-structure``: a directory of mp4s into a directory of video dirs;
+- ``config``: the default ``PipelineConfig`` as JSON.
+The files are ``chd_tpu``'s. ``--device`` names the device of the commands
+that compute and defaults to ``cuda``, which raises where CUDA is absent;
+the last four are host code and take no device.
 """
 from __future__ import annotations
 
@@ -124,7 +129,50 @@ def main(argv=None):
     p.add_argument("--joint-set", default="lower")
     _add_device_arg(p)
 
+    p = sub.add_parser("openpose", help="run the OpenPose binary per video dir")
+    p.add_argument("--data", required=True)
+    p.add_argument("--openpose", required=True, help="OpenPose root (with build/)")
+    p.add_argument("--hands", action="store_true")
+    p.add_argument("--face", action="store_true")
+    p.add_argument("--save-video", action="store_true")
+
+    p = sub.add_parser("totalcap", help="run MonocularTotalCapture per video dir")
+    p.add_argument("--data", required=True)
+    p.add_argument("--totalcap", required=True, help="MTC fork root")
+
+    p = sub.add_parser("make-structure", help="dir of mp4s → dir of video dirs")
+    p.add_argument("--data", required=True)
+    p.add_argument("--out", required=True)
+
+    sub.add_parser("config", help="print the default config JSON")
+
     args = parser.parse_args(argv)
+
+    if args.cmd == "config":
+        from ..utils.config import PipelineConfig
+
+        print(PipelineConfig().to_json())
+        return 0
+
+    if args.cmd == "make-structure":
+        from .structure import create_optim_data_structure
+
+        print("\n".join(create_optim_data_structure(args.data, args.out)))
+        return 0
+
+    if args.cmd == "openpose":
+        from .external import run_openpose
+
+        run_openpose(_video_dirs(args.data), args.openpose, hands=args.hands, face=args.face,
+                     save_video=args.save_video)
+        return 0
+
+    if args.cmd == "totalcap":
+        from .external import run_totalcap
+
+        run_totalcap(_video_dirs(args.data), args.totalcap)
+        return 0
+
     from ..models import torch_convert
     from ..utils.device import resolve_device
 

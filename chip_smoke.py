@@ -176,6 +176,31 @@ library:
     nearest-point association, whose ties could part the devices), within
     [13]'s bounds.
 
+The host layer:
+
+24. ``utils.profiling.trace`` around ``TRACE_CALLS`` golden
+    ``detect_contacts`` calls: its Chrome trace must hold exactly one
+    ``fused_mlp_kernel...`` device event per call, as many as the wrapper
+    counts; ``utils.profiling.benchmark`` on [5]'s ``_infer_batch`` (512 x
+    240, device-resident) and on the kernel alone at its conv rows: each
+    ``mean_s`` must read at least ``BENCH_MIN_RATIO`` of the same calls'
+    CUDA-event time; beside them, ``benchmark`` with its host read taken
+    out, which on the device-bound kernel must fail that gate; a ``run`` on the
+    card of [20]'s 12-frame dir at [20]'s budgets, whose outputs (the
+    kinematic joints and contacts, the floor, the picked physics result),
+    a small training history on the card and the golden calls' confusion
+    counts go as card tensors to ``blender.estimate_kinematic_forces``,
+    ``blender.pick_result`` and every viz function: ``viz.video.to_host``
+    must bring them to the host as they are and, where what it renders
+    with is installed (cv2 for ``render_keypoint_video``, matplotlib and
+    cv2 for the others), each function must render the same frames or PNG
+    pixels from card tensors as from the same values as host numpy,
+    bitwise (a line of its own names what is not installed and what it
+    does not render); then
+    ``python -m chd_tpu_torch.pipeline config`` and ``make-structure`` in
+    fresh processes: the default config's JSON, the tree of video dirs, and
+    no jax or chd_tpu module in either process.
+
 Then it prints one JSON line on the kernels (the fused-MLP kernel in each of
 its four modes), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -265,6 +290,10 @@ BANDED_COST_X = 1.001
 # and within ONE_PASS_ULPS bf16 roundings (2**-8 relative) of the largest
 # logit, and their binary agreement with "high"
 HIGHEST_MAX_D, ONE_PASS_ULPS, MODE_AGREE_MIN = 1e-5, 4, 0.99
+# [24]: golden detect_contacts calls traced (one kernel event each);
+# _infer_batch calls timed by utils.profiling.benchmark, whose mean_s must
+# read at least BENCH_MIN_RATIO of the same calls' CUDA-event time
+TRACE_CALLS, BENCH_ITERS, BENCH_MIN_RATIO = 2, 20, 0.9
 
 
 def fail(msg: str) -> None:
@@ -2232,6 +2261,305 @@ def physics_phases(torch, dev, smi: str) -> None:
             fail("[20] the run CLI on the card disagrees with the CPU")
 
 
+def _not_installed(*modules) -> list:
+    import importlib.util
+
+    return [m for m in modules if importlib.util.find_spec(m) is None]
+
+
+def _captured_frames(video_lib, render) -> list:
+    """The frames ``render()`` hands to ``VideoSink.write`` (still written)."""
+    frames, write = [], video_lib.VideoSink.write
+
+    def capture(sink, frame):
+        frames.append(np.array(frame, copy=True))
+        write(sink, frame)
+
+    with mock.patch.object(video_lib.VideoSink, "write", capture):
+        render()
+    return frames
+
+
+def _png_pixels(path: str) -> np.ndarray:
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        fail(f"[24] {path} does not decode")
+    return img
+
+
+def _trace_kernel_events(trace_dir: str) -> tuple:
+    """(the device kernels named ``fused_mlp_kernel...``, the names of the
+    other device kernels) of the one Chrome trace under ``trace_dir``."""
+    import glob
+    import re
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"[24] profiling.trace wrote {files}, not one Chrome trace")
+    with open(files[0]) as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    # the instantiations are templates in an anonymous namespace: a
+    # demangled name reads "void (anonymous namespace)::fused_mlp_kernel<...>(...)"
+    name = re.compile(r"(void )?(\(anonymous namespace\)::)?fused_mlp_kernel<")
+    found = [e for e in kernels if name.match(e.get("name", ""))]
+    return found, sorted({e.get("name", "")[:80] for e in kernels} - {e["name"][:80] for e in found})
+
+
+def host_layer_phase(torch, dev, smi: str) -> None:
+    """Phase [24]: the host layer on the card: ``utils.profiling``'s trace
+    and benchmark on the detector, the viz entry points and blender's host
+    helpers on card tensors from a ``run`` on the card, and the CLI's host
+    commands in a fresh process."""
+    import chd_tpu_torch.viz as viz
+    from chd_tpu_torch.characters import defs
+    from chd_tpu_torch.contact import infer, synth
+    from chd_tpu_torch.contact import train as train_lib
+    from chd_tpu_torch.core import bvh, fk
+    from chd_tpu_torch.ingest import openpose
+    from chd_tpu_torch.models import torch_convert
+    from chd_tpu_torch.ops import gapfill
+    from chd_tpu_torch.ops.fused_mlp import fused_mlp
+    from chd_tpu_torch.physics import towr_io
+    from chd_tpu_torch.pipeline.run import run_pipeline
+    from chd_tpu_torch.utils import metrics as metrics_lib
+    from chd_tpu_torch.utils import profiling
+    from chd_tpu_torch.utils.config import PipelineConfig
+    from chd_tpu_torch.viz import blender
+    from chd_tpu_torch.viz import video as video_lib
+
+    t_phase = time.perf_counter()
+    golden = np.load(GOLDEN)
+    gmodel = torch_convert.from_state_dict(
+        {key[3:]: golden[key] for key in golden.files if key.startswith("sd.")})
+
+    # -- trace: two detect_contacts calls, one kernel event each ------------
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = golden_video_dirs(tmp, golden)
+        infer.detect_contacts(dirs, gmodel, device=dev, image_dims=(1920, 1080), save=False)
+        fused_mlp.launches = 0
+        with profiling.trace(os.path.join(tmp, "trace")):
+            for _ in range(TRACE_CALLS):
+                results = infer.detect_contacts(dirs, gmodel, device=dev,
+                                                image_dims=(1920, 1080), save=False)
+        launches = fused_mlp.launches
+        found, others = _trace_kernel_events(os.path.join(tmp, "trace"))
+    print(f"[24] the host layer on the card ({smi}): profiling.trace around {TRACE_CALLS} "
+          f"golden detect_contacts calls: {len(found)} fused_mlp_kernel device events "
+          f"({sorted({e['name'].split('(float')[0] for e in found})}), {launches} launches "
+          "counted")
+    if len(found) != TRACE_CALLS or launches != TRACE_CALLS:
+        fail(f"[24] the trace holds {len(found)} fused_mlp_kernel events for {TRACE_CALLS} "
+             f"calls ({launches} launches counted; the other kernels: {others})")
+
+    # -- benchmark: _infer_batch at [5]'s batch, and the kernel alone at its
+    # conv rows, each against CUDA events of the same calls ----------------
+    big = torch.from_numpy(synth_videos(BIG_V, BIG_F, seed=0)).to(dev)
+    det = infer.ContactDetector(gmodel, device=dev)
+    joints_in, root, appended = infer.subset_joints(det.kw["joint_subset"])
+    rows = infer.mlp_logits(
+        gapfill.preprocess_keypoints(big[:, :, joints_in], det.kw["conf_thresh"],
+                                     det.kw["normalization"]),
+        det.layers, window_size=det.kw["window_size"], root_in_subset=root,
+        root_appended=appended, use_confidence=det.kw["use_confidence"],
+        use_conv=det.kw["use_conv"], mlp=lambda *a: a)
+    calls = {"_infer_batch": lambda: infer._infer_batch(big, det.layers, **det.kw),
+             "fused_mlp": lambda: fused_mlp(*rows)}
+
+    def event_s(fn) -> float:
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(BENCH_ITERS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / BENCH_ITERS / 1e3
+
+    print(f"    profiling.benchmark, {BENCH_ITERS} iters, against CUDA events of the same calls "
+          f"(ratio >= {BENCH_MIN_RATIO}; {smi}):")
+    for name, fn in calls.items():
+        ev = [event_s(fn)]
+        bench = profiling.benchmark(fn, warmup=2, iters=BENCH_ITERS)
+        ev.append(event_s(fn))
+        torch.cuda.synchronize()
+        with mock.patch.object(profiling, "_sync", lambda tree: None):
+            no_read = profiling.benchmark(fn, warmup=2, iters=BENCH_ITERS)["mean_s"]
+        torch.cuda.synchronize()
+        ev_mean = statistics.mean(ev)
+        print(f"      {name} ({BIG_V} x {BIG_F}): mean_s {bench['mean_s'] * 1e3:.3f} ms "
+              f"({bench['iters_per_s']:.1f} calls/s); CUDA events {ev[0] * 1e3:.3f} and "
+              f"{ev[1] * 1e3:.3f} ms; ratio {bench['mean_s'] / ev_mean:.3f}; without its host "
+              f"read {no_read * 1e3:.3f} ms, ratio {no_read / ev_mean:.3f}")
+        if not bench["mean_s"] >= BENCH_MIN_RATIO * ev_mean:
+            fail(f"[24] profiling.benchmark reads {bench['mean_s']} s of {name} against "
+                 f"{ev_mean} s of CUDA events: it times the launches, not the work")
+        # the control: the kernel alone is device-bound, so a benchmark
+        # without its host read must fail the gate
+        if name == "fused_mlp" and no_read >= BENCH_MIN_RATIO * ev_mean:
+            fail("[24] the gate does not see a benchmark of the kernel without its host read")
+
+    # -- a run on the card, and its outputs as card tensors -----------------
+    g = np.load(TRAJ_GOLDEN)
+    skel = golden_skeleton(g)
+    J = len(skel.parents)
+    with tempfile.TemporaryDirectory() as tmp:
+        skel_bvh = os.path.join(tmp, "combined_body_25.bvh")
+        bvh.save(skel_bvh, skel.slice_frames(0, 1), [f"joint_{j}" for j in range(J)])
+        vd = synth_video_dir(os.path.join(tmp, "data"), skel)
+        cfg = PipelineConfig().override(**{"character": "ybot", "kinematic.skel_path": skel_bvh},
+                                        **RUN_BUDGET)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_pipeline(vd, cfg, char_skel_bvh=YBOT_TEMPLATE, device=dev)
+        t_run = time.perf_counter() - t
+        kin = os.path.join(vd, "kinematic_results")
+        phys_out = os.path.join(vd, "phys_optim_out_ybot")
+        anim, _, _ = bvh.load(os.path.join(kin, "final_test.bvh"))
+        joints = fk.positions_global(torch.from_numpy(anim.rotations).to(dev),
+                                     torch.from_numpy(anim.positions).to(dev), anim.parents)
+        contacts = torch.from_numpy(np.load(os.path.join(kin, "foot_contacts.npy"))).to(dev)
+        with open(os.path.join(kin, "floor_out.txt")) as f:
+            normal = torch.tensor([float(x) for x in f.readline().split()],
+                                  dtype=torch.float64, device=dev)
+            point = torch.tensor([float(x) for x in f.readline().split()],
+                                 dtype=torch.float64, device=dev)
+        label = blender.pick_result(phys_out)
+        log = towr_io.load_success_log(os.path.join(phys_out, "success_log.txt"))
+        want_label = ("durations" if log.get("durations") else
+                      "dynamics" if log.get("dynamics") else "no_dynamics")
+        sol = towr_io.load_results(os.path.join(phys_out, f"sol_out_{label}.txt"))
+        sol_card = sol._replace(**{k: torch.from_numpy(v).to(dev) for k, v in sol._asdict().items()
+                                   if isinstance(v, np.ndarray)})
+        # the 1920 x 1080 keypoints drawn at a quarter of that size
+        keypoints = torch.from_numpy(openpose.load_keypoint_dir(
+            os.path.join(vd, "openpose_result"))).to(dev) * torch.tensor([0.25, 0.25, 1.0],
+                                                                          device=dev)
+        mass = 70.0
+        forces = blender.estimate_kinematic_forces(sol_card.base_pos, normal, mass)
+        forces_host = blender.estimate_kinematic_forces(sol.base_pos, normal.cpu().numpy(), mass)
+        print(f"    run on the card (the synthetic 12-frame dir, [20]'s budgets): {t_run:.2f} s; "
+              f"blender.pick_result {label!r} (success log {log}); estimate_kinematic_forces "
+              f"on card tensors {forces.shape}, equal to numpy's: "
+              f"{np.array_equal(forces, forces_host)}")
+        if label != want_label or not np.array_equal(forces, forces_host):
+            fail("[24] blender's host helpers disagree on card tensors")
+
+        # the training history of the port's train on the card
+        ds = synth.learnable_dataset(n_seq=24, frames=60, device=dev)
+        _, hist = train_lib.train(ds, train_lib.TrainConfig(epochs=3, batch_size=8, val_every=1),
+                                  log_every=1, verbose=False)
+        hist_card = {k: torch.tensor(hist[k], dtype=torch.float64, device=dev)
+                     for k in ("train_loss", "val_loss", "train_acc", "val_f1")}
+        acc_card = torch.tensor([m["accuracy"] for m in hist["val_metrics"][-1]],
+                                dtype=torch.float64, device=dev)
+        pred = torch.from_numpy(np.concatenate(results)).to(dev) > 0
+        labels = torch.from_numpy(np.concatenate([golden[f"contacts_{i}"]
+                                                  for i in range(len(results))])).to(dev) > 0
+        confusion = metrics_lib.confusion_counts(pred, labels)
+
+        joint_contacts = torch.zeros(joints.shape[:2], dtype=torch.int64, device=dev)
+        joint_contacts[:, defs.COMBINED_SKEL_FEET_IDX] = contacts.amax(1, keepdim=True)
+        adjacency = [np.array([(j, p) for j, p in enumerate(anim.parents) if p >= 0])]
+        card_args = {
+            "animate_skeletons": dict(joints3d=[joints], adjacency=adjacency,
+                                      contacts=joint_contacts, floor_normal=normal,
+                                      floor_point=point, figsize=(4, 3), max_frames=3),
+            "render_keypoint_video": dict(joint2d_list=[keypoints], contacts=contacts,
+                                          dimensions=(480, 270)),
+            "animate_physics_results": dict(results=[sol_card], floor_normal=normal,
+                                            floor_point=point * 0.01, max_frames=3),
+            "plot_train_curves": dict(history=hist_card),
+            "plot_confusion_matrix": dict(confusion=confusion),
+            "plot_accuracy_hist": dict(accuracies=acc_card),
+            "plot_3curve": dict(arr=sol_card.base_pos, dt=sol_card.dt, ylabel="COM (m)"),
+        }
+        host_args = video_lib.to_host(card_args)
+        same = (np.array_equal(host_args["animate_skeletons"]["joints3d"][0],
+                               joints.cpu().numpy())
+                and np.array_equal(host_args["animate_physics_results"]["results"][0].feet_force,
+                                   sol.feet_force)
+                and isinstance(host_args["plot_confusion_matrix"]["confusion"],
+                               metrics_lib.Confusion))
+        print(f"    viz.video.to_host of the card tensors equals their host copies: {same}")
+        if not same:
+            fail("[24] viz.video.to_host does not bring card tensors to the host as they are")
+        # render_keypoint_video needs cv2; the others matplotlib and cv2
+        from chd_tpu_torch.viz import plots
+
+        readings, skipped = [], {}
+        for name, args in card_args.items():
+            missing = _not_installed("cv2") if name == "render_keypoint_video" else \
+                _not_installed("matplotlib", "cv2")
+            if missing:
+                skipped[name] = missing
+                continue
+            fn = getattr(viz, name, None) or getattr(plots, name)
+            t = time.perf_counter()
+            outs = []
+            for k, a in enumerate((args, host_args[name])):
+                path = os.path.join(tmp, f"{name}_{k}.{'png' if 'plot' in name else 'mp4'}")
+                if name.startswith("plot"):
+                    fn(out_path=path, **a)
+                    outs.append([_png_pixels(path)])
+                else:
+                    outs.append(_captured_frames(video_lib, lambda: fn(out_path=path, **a)))
+            equal = (len(outs[0]) == len(outs[1]) > 0
+                     and all(np.array_equal(x, y) for x, y in zip(*outs)))
+            readings.append(f"{name} {len(outs[0])} x {outs[0][0].shape} "
+                            f"{(time.perf_counter() - t) / 2:.2f} s a render, "
+                            f"{'equal' if equal else 'DIFFERENT'}")
+            if not equal:
+                fail(f"[24] {name} renders other pixels from card tensors than from numpy")
+        for missing in sorted({tuple(m) for m in skipped.values()}):
+            print(f"    {' and '.join(missing)} not installed on this machine: [24] renders none "
+                  f"of {', '.join(n for n, m in skipped.items() if tuple(m) == missing)}")
+        if readings:
+            print("    viz from card tensors against the same values as host numpy, bitwise "
+                  "(host seconds per render, not a metric of the card): " + "; ".join(readings))
+
+    # -- the CLI's host commands in a fresh process -------------------------
+    code = ("import json, runpy, sys\n"
+            "sys.argv = ['chd_tpu_torch.pipeline'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('chd_tpu_torch.pipeline', run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "print(json.dumps(sorted(m for m in sys.modules\n"
+            "                        if m.split('.')[0] in ('jax', 'chd_tpu'))), file=sys.stderr)\n"
+            "sys.exit(rc)\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out_dir = os.path.join(tmp, "videos"), os.path.join(tmp, "structured")
+        os.makedirs(src)
+        for name in ("walk.mp4", "jump.mp4", "notes.txt"):
+            with open(os.path.join(src, name), "wb") as f:
+                f.write(name.encode())
+        outs = {}
+        for args in (["config"], ["make-structure", "--data", src, "--out", out_dir]):
+            t = time.perf_counter()
+            p = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO,
+                               capture_output=True, text=True, timeout=300)
+            outs[args[0]] = (p, time.perf_counter() - t)
+        cfg_p, mk_p = outs["config"][0], outs["make-structure"][0]
+        tree = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                      for d, _, fs in os.walk(out_dir) for f in fs)
+        ok = (cfg_p.returncode == 0 and mk_p.returncode == 0
+              and cfg_p.stdout == PipelineConfig().to_json() + "\n"
+              and mk_p.stdout.split() == [os.path.join(out_dir, "jump"),
+                                          os.path.join(out_dir, "walk")]
+              and tree == ["jump/jump.mp4", "walk/walk.mp4"])
+        foreign = [p.stderr.strip().splitlines()[-1] if p.stderr.strip() else "?"
+                   for p, _ in outs.values()]
+        print(f"    python -m chd_tpu_torch.pipeline config: rc {cfg_p.returncode}, "
+              f"{len(cfg_p.stdout)} bytes, {outs['config'][1]:.2f} s; make-structure: rc "
+              f"{mk_p.returncode}, tree {tree}, {outs['make-structure'][1]:.2f} s; jax or chd_tpu "
+              f"modules in each process: {foreign}")
+        if not ok or foreign != ["[]", "[]"]:
+            fail(f"[24] the CLI's host commands: {cfg_p.stderr[-2000:]} {mk_p.stderr[-2000:]}")
+    print(f"    [24] took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _t(a):
     import torch
 
@@ -2270,6 +2598,7 @@ def main() -> None:
     banded_phase(torch, dev, smi, pcg)
     modes = precision_phase(torch, dev, smi)
     library_phase(torch, dev)
+    host_layer_phase(torch, dev, smi)
 
     if "jax" in sys.modules or any(m.split(".")[0] == "chd_tpu" for m in sys.modules):
         fail("jax or chd_tpu was imported")

@@ -119,7 +119,7 @@ def test_banded_jtj_matches_dense_jacobian():
 
     r, vjp_fn = torch.func.vjp(res, x)
     _, lin = torch.func.vjp(lambda cot: vjp_fn(cot)[0], torch.zeros_like(r))
-    masks = banded.coloring_masks(F, D, dtype=torch.float64)
+    masks = banded.coloring_masks(F, D, dtype=torch.float64, device="cpu")
     U0, L1, L2 = banded.banded_jtj(lambda v: vjp_fn(lin(v)[0])[0], masks, 2, F, D)
     assert U0.shape == (2, F, D, D)
     np.testing.assert_array_equal(masks.numpy(), np.asarray(jax_banded.coloring_masks(F, D)))
@@ -147,7 +147,8 @@ def test_lm_solve_modes_match_chd_tpu(mode):
     cfg = lm.LMConfig(max_iters=3, cg_iters=10)
     kw = {"lambda": {}, "banded": dict(banded_spec=(F, D))}[mode]
     port_kw = {"lambda": {},
-               "banded": dict(banded_masks=banded.coloring_masks(F, D, dtype=torch.float64))}[mode]
+               "banded": dict(banded_masks=banded.coloring_masks(F, D, dtype=torch.float64,
+                                                                  device="cpu"))}[mode]
     got, cost = lm.lm_solve(lay.residual, x, args, cfg, **port_kw)
     c0 = 0.5 * (lay.residual(x, *args) ** 2).sum(-1)
     for b, (d, xb) in enumerate(problems):

@@ -48,7 +48,7 @@ def _golden_parents():
 
 
 @pytest.mark.parametrize("name", [
-    "BODY_25_ROOT_IDX", "SMPL_ROOT_IDX", "SMPL_SPINE_JOINTS", "COMBINED_NUM_JOINTS",
+    "BODY_25_ROOT_IDX", "BODY_25_ADJ_LIST", "SMPL_ROOT_IDX", "SMPL_SPINE_JOINTS", "COMBINED_NUM_JOINTS",
     "COMBINED_ROOT_IDX", "COMBINED_PROJ_WEIGHTS", "COMBINED_DATA_WEIGHTS",
     "COMBINED_SMOOTH_WEIGHTS", "COMBINED_SKEL_TO_DATA", "COMBINED_DATA_TO_SKEL",
     "COMBINED_SKEL_ROOT_IDX", "COMBINED_SKEL_SPINE_JOINTS", "COMBINED_SKEL_FEET_IDX",

@@ -36,7 +36,8 @@ from chd_tpu.kinematics import lm as jax_lm
 from chd_tpu.kinematics import residuals as jax_res
 from chd_tpu_torch.core import fk, quat
 from chd_tpu_torch.core.animation import Animation
-from chd_tpu_torch.kinematics import floor, ik, lm, residuals
+from chd_tpu_torch.kinematics import banded, batch, floor, ik, lm, residuals
+from chip_smoke import golden_skeleton, kin_problem
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 GOLDEN = np.load(os.path.join(FIXTURES, "trajectory_golden.npz"))
@@ -139,6 +140,27 @@ def test_gradient_and_jtjv_match_jax_linearize(problems):
             np.testing.assert_allclose(got[b].numpy(), hj, atol=1e-9 * np.abs(hj).max(), rtol=0)
 
 
+def test_kinematic_array_entry_points_default_to_cuda():
+    """prepare_batch_arrays, lm.frame_coloring_masks and
+    banded.coloring_masks put their arrays on the card unless asked for the
+    CPU, as chd_tpu's put theirs on its accelerator: they raise where CUDA
+    is absent, and give CPU tensors when asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the test is of a machine without it")
+    skel = golden_skeleton(GOLDEN)
+    problems = [kin_problem(np.random.default_rng(0), skel, 8)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        batch.prepare_batch_arrays(problems, skel)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.frame_coloring_masks(8, D)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        banded.coloring_masks(8, D)
+    arrs, F = batch.prepare_batch_arrays(problems, skel, device="cpu")
+    assert F == 8 and all(a.device.type == "cpu" for a in arrs.values())
+    assert lm.frame_coloring_masks(8, D, device="cpu").device.type == "cpu"
+    assert banded.coloring_masks(8, D, device="cpu").device.type == "cpu"
+
+
 def test_coloring_diagonal_is_exact():
     F = 5
     data, x = _batch([_problem(3, F, 0), _problem(4, F, 1)])
@@ -147,7 +169,7 @@ def test_coloring_diagonal_is_exact():
     def res(z):
         return lay.residual(z, data, residuals.TermWeights(**W))
 
-    masks = lm.frame_coloring_masks(F, D, dtype=torch.float64)
+    masks = lm.frame_coloring_masks(F, D, dtype=torch.float64, device="cpu")
     r, vjp_fn = torch.func.vjp(res, x)
 
     def jtjv(v):
@@ -169,7 +191,7 @@ def test_lm_solve_matches_chd_tpu(problems):
     F = problems[0][0]["pose3d"].shape[0]
     cfg = lm.LMConfig(max_iters=3, cg_iters=10)
     args = (data, residuals.TermWeights(**W))
-    masks_t = lm.frame_coloring_masks(F, D, dtype=torch.float64)
+    masks_t = lm.frame_coloring_masks(F, D, dtype=torch.float64, device="cpu")
     got, cost = lm.lm_solve(lay.residual, x, args, cfg, masks_t)
     masks = jax_lm.frame_coloring_masks(F, D, dtype=jnp.float64)
     for b, (d, xb) in enumerate(problems):
