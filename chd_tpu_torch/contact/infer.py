@@ -45,6 +45,7 @@ from ..models import contact_mlp
 from ..models.contact_mlp import ContactMLP
 from ..ops import gapfill, voting, windows
 from ..ops.fused_mlp import MlpLayers, fused_mlp, mlp_mode
+from ..parallel import mesh as mesh_lib
 from ..utils.device import resolve_device
 
 # Constants matching training of the reference model
@@ -182,11 +183,17 @@ class ContactDetector:
                                  use_confidence=use_confidence, use_conv=use_conv,
                                  precision=precision, mlp_dtype=mlp_dtype)
 
-    def infer(self, op_batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def infer(self, op_batch: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(V, F, 25, 3) tensor → ((V, F, 4) contacts, (V, N, P, 4) probs),
-        both on the detector's device."""
+        both on the detector's device. With ``mesh`` (``parallel.mesh``, on
+        the detector's device) each rank runs its contiguous slice of the
+        videos (V must divide over the mesh's batch shards), and so the
+        kernel, and the results are gathered to every rank."""
         x = op_batch.to(self.device, torch.float32)
-        return _infer_batch(x, self.layers, **self.kw)
+        if mesh is None:
+            return _infer_batch(x, self.layers, **self.kw)
+        local = mesh_lib.shard_batch(mesh, x)
+        return mesh_lib.gather(mesh, _infer_batch(local, self.layers, **self.kw))
 
     def detect(self, op_data: np.ndarray, seq_len: Optional[int] = None) -> np.ndarray:
         """Single video (F, 25, 3) → (seq_len, 4) int contacts."""
@@ -194,10 +201,11 @@ class ContactDetector:
         contacts = contacts[0].cpu().numpy()
         return contacts[: seq_len if seq_len is not None else len(contacts)]
 
-    def detect_batch(self, op_batch: np.ndarray,
-                     seq_lens: Optional[Sequence[int]] = None) -> list:
-        """(B, F, 25, 3) padded batch → list of (len_i, 4) contacts."""
-        contacts, _ = self.infer(torch.as_tensor(np.asarray(op_batch, np.float32)))
+    def detect_batch(self, op_batch: np.ndarray, seq_lens: Optional[Sequence[int]] = None,
+                     mesh=None) -> list:
+        """(B, F, 25, 3) padded batch → list of (len_i, 4) contacts (over
+        ``mesh``'s ranks where given, as ``infer``)."""
+        contacts, _ = self.infer(torch.as_tensor(np.asarray(op_batch, np.float32)), mesh=mesh)
         contacts = contacts.cpu().numpy()
         if seq_lens is None:
             return list(contacts)

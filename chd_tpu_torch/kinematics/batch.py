@@ -12,9 +12,9 @@ the results back, nothing syncs with the host (``_refine_core``).
 Each stage is a function of its own (``ik_init_batch``, ``lm_stage``,
 ``floor_stage``), so a caller can time them apart. The LM stages solve their
 inner systems by PCG (``lm_solver="pcg"``, the default) or by the banded
-direct solve of ``kinematics/banded.py`` (``"banded"``). ``chd_tpu``'s
-``mesh`` argument (sequences sharded over devices) waits for the multi-card
-port.
+direct solve of ``kinematics/banded.py`` (``"banded"``). With a ``mesh``
+(``parallel.mesh``) each rank solves its contiguous slice of the padded
+batch and the results are gathered once at the end.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import torch
 from ..characters import defs
 from ..core import quat
 from ..core.animation import Animation
+from ..parallel import mesh as mesh_lib
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import resolve_device
 from . import banded as banded_lib
@@ -222,6 +223,7 @@ def optimize_trajectory_batch(
     floor: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     graphs: Optional[GraphCache] = None,
     lm_solver: str = "pcg",
+    mesh=None,
 ) -> List[traj_lib.TrajectoryResult]:
     """problems: per-sequence dicts with keys pose2d (F,28,2), conf2d (F,28),
     pose3d (F,28,3), root_pos (F,3), smpl_angles (F,J,3), vel_constraints
@@ -238,12 +240,19 @@ def optimize_trajectory_batch(
     H100; PERF.md); on the CPU they run eagerly. ``graphs``, a
     ``GraphCache`` kept across calls, saves the capture of each step shape
     (~2 s at 16 x 100); without it each call captures anew.
+
+    With ``mesh`` (``parallel.mesh.Mesh``) the whole batch is padded first,
+    so a sequence pads alike sharded or not; then each rank solves its
+    slice of it (the batch must divide over the mesh's batch shards) on its
+    own device (``mesh.device``, in place of ``device``), with its own CUDA
+    graphs and no collective inside a step, and the results are gathered.
     """
+    if mesh is not None:
+        device = mesh.device
     device = resolve_device(device)
     if graphs is None and device.type == "cuda":
         graphs = GraphCache()
     parents = tuple(skeleton.parents)
-    J = len(parents)
     lens = [p["pose2d"].shape[0] for p in problems]
     arrs, F = prepare_batch_arrays(problems, skeleton, cam_focal, cam_pp, device, dtype)
     ik_cfg = IKConfig(iterations=ik_iterations, damping=7.0, solver=ik_solver)
@@ -252,11 +261,24 @@ def optimize_trajectory_batch(
     if floor is not None:
         given = tuple(torch.as_tensor(np.asarray(v), dtype=dtype, device=device) for v in floor)
 
-    out = _refine_core(arrs, consts, traj_lib.STAGE1, traj_lib.STAGE2, lm_cfg, given, graphs)
-    x2, normals, points, vc2, rot_q, y_b, root_b = (t.cpu().numpy() for t in out)
-    offsets_np = arrs["offsets"].cpu().numpy()
+    if mesh is None:
+        out = _refine_core(arrs, consts, traj_lib.STAGE1, traj_lib.STAGE2, lm_cfg, given, graphs)
+    else:
+        out = mesh_lib.gather(mesh, _refine_core(mesh_lib.shard_batch(mesh, arrs), consts,
+                                                 traj_lib.STAGE1, traj_lib.STAGE2, lm_cfg,
+                                                 given, graphs))
+    return unpack_results(out, arrs["offsets"], lens, skeleton, cam_focal, cam_pp)
 
-    # unpack per sequence (pure numpy: all device work happened in the core)
+
+def unpack_results(out, offsets: torch.Tensor, lens: Sequence[int], skeleton: Animation,
+                   cam_focal, cam_pp) -> List[traj_lib.TrajectoryResult]:
+    """``_refine_core``'s batched outputs → per-sequence TrajectoryResults on
+    the host, trimmed to ``lens`` (pure numpy: the device work is done)."""
+    x2, normals, points, vc2, rot_q, y_b, root_b = (t.cpu().numpy() for t in out)
+    offsets_np = offsets.cpu().numpy()
+    parents = tuple(skeleton.parents)
+    J = len(parents)
+    F = y_b.shape[1]
     results = []
     fx, fy = cam_focal
     cx, cy = cam_pp

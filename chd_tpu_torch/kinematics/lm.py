@@ -80,21 +80,27 @@ def frame_coloring_masks(num_frames: int, dofs_per_frame: int, bandwidth: int = 
     return torch.as_tensor(masks, dtype=dtype, device=resolve_device(device))
 
 
-def _pcg(matvec: Callable, b: torch.Tensor, inv_diag: torch.Tensor, iters: int) -> torch.Tensor:
-    """Fixed-iteration Jacobi-preconditioned CG, one system per row of b."""
+def _row_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1, keepdim=True)
+
+
+def _pcg(matvec: Callable, b: torch.Tensor, inv_diag: torch.Tensor, iters: int,
+         dot: Callable = _row_dot) -> torch.Tensor:
+    """Fixed-iteration Jacobi-preconditioned CG, one system per row of b
+    (``dot``: per row; ``parallel.longseq`` passes a global one)."""
     x = torch.zeros_like(b)
     r = b
     z = inv_diag * b
     p = z
-    rz = (b * z).sum(-1, keepdim=True)
+    rz = dot(b, z)
     for _ in range(iters):
         Ap = matvec(p)
-        denom = (p * Ap).sum(-1, keepdim=True)
+        denom = dot(p, Ap)
         alpha = torch.where(denom > 0, rz / torch.clamp(denom, min=1e-30), 0.0)
         x = x + alpha * p
         r = r - alpha * Ap
         z = inv_diag * r
-        rz_new = (r * z).sum(-1, keepdim=True)
+        rz_new = dot(r, z)
         beta = rz_new / torch.clamp(rz, min=1e-30)
         p = z + beta * p
         rz = rz_new

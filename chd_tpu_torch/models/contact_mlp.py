@@ -66,19 +66,21 @@ class ContactMLP(nn.Module):
         self.model = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor, dropout_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
         """x: (B, W, J, F) or (B, in_dim) → (B, out_dim) logits.
 
         In training mode BN uses (and updates) batch statistics, and dropout
         keeps the True entries of ``dropout_mask`` (B, 128), or of a mask
-        drawn from ``generator``; one of the two is required.
+        drawn from ``generator``; one of the two is required. With ``mesh``
+        (``parallel.mesh.Mesh``), x is this rank's slice of the global batch
+        and the BN statistics are the global batch's (sync-BN).
         """
         h = x.reshape(x.shape[0], -1)
         if not self.training:
             return self.model(h)
         for layer in self.model:
             if isinstance(layer, nn.BatchNorm1d):
-                h = _batch_norm_train(layer, h)
+                h = _batch_norm_train(layer, h, mesh)
             elif isinstance(layer, nn.Dropout):
                 if dropout_mask is None:
                     if generator is None:
@@ -97,11 +99,19 @@ class ContactMLP(nn.Module):
         return [self.model[i] for i in BN_IDX]
 
 
-def _batch_norm_train(bn: nn.BatchNorm1d, h: torch.Tensor) -> torch.Tensor:
-    """Train-mode BN with ``chd_tpu``'s statistics; updates ``bn``'s buffers."""
-    n = h.shape[0]
-    mean = h.mean(dim=0)
-    var = h.var(dim=0, unbiased=False)
+def _batch_norm_train(bn: nn.BatchNorm1d, h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Train-mode BN with ``chd_tpu``'s statistics; updates ``bn``'s buffers.
+    With ``mesh`` the mean and the biased variance (two passes) come from
+    sums over every rank's rows, differentiable through the all-reduce, and
+    n is the global batch."""
+    if mesh is None:
+        n = h.shape[0]
+        mean = h.mean(dim=0)
+        var = h.var(dim=0, unbiased=False)
+    else:
+        n = mesh.global_rows(h.shape[0])
+        mean = mesh.differentiable_sum(h.sum(dim=0)) / n
+        var = mesh.differentiable_sum(((h - mean) ** 2).sum(dim=0)) / n
     with torch.no_grad():
         m = BN_MOMENTUM
         bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)

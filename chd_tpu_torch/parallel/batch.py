@@ -11,8 +11,11 @@ frames (see physics/collocation.py), so padding cannot perturb the real
 solution. Between the copy of the inputs to the device and the copy of the
 ``durations_ok`` flags back, a solve makes no host sync.
 
-``chd_tpu``'s ``mesh`` argument (the batch sharded over devices) waits for
-the multi-card port (ROADMAP 1.11); here the batch runs on one device.
+With a ``mesh`` (``parallel.mesh``) the caller's batch is already padded to
+one frame count and the duration specs to one phase count, so a sequence
+pads alike sharded or not; each rank then solves its contiguous slice on its
+own device (``mesh.device``), replaying its own CUDA graphs with no
+collective inside a step, and the results are gathered once at the end.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..kinematics.lm import frame_coloring_masks, lm_solve
+from ..parallel import mesh as mesh_lib
 from ..physics import collocation
 from ..physics import durations as dur_lib
 from ..physics.types import PhysInput, PhysResult, PhysWeights
@@ -143,13 +147,26 @@ def _staged_core(phys_batch: PhysInput, weights: PhysWeights, cfg: collocation.S
     return res_fit, collocation._to_result(x, phys_batch)
 
 
+def _local(mesh, *trees):
+    """Each tree's rows of this rank (all of them without a mesh)."""
+    return trees if mesh is None else mesh_lib.shard_batch(mesh, trees)
+
+
+def _global(mesh, tree):
+    return tree if mesh is None else mesh_lib.gather(mesh, tree)
+
+
 def solve_physics_batch(phys_batch: PhysInput, weights: PhysWeights = PhysWeights(),
                         cfg: collocation.SolveConfig = collocation.SolveConfig(),
-                        graphs: Optional[GraphCache] = None) -> Tuple[PhysResult, PhysResult]:
-    """Solve B physics problems in lockstep on their device. Returns batched
-    (fit, dynamics) results, on the device."""
+                        graphs: Optional[GraphCache] = None,
+                        mesh=None) -> Tuple[PhysResult, PhysResult]:
+    """Solve B physics problems in lockstep on their device, or each rank
+    its slice of them over ``mesh``. Returns batched (fit, dynamics)
+    results, on the device."""
+    phys_batch, = _local(mesh, phys_batch)
     with full_f32():
-        return _staged_core(phys_batch, weights, cfg, _graphs_for(phys_batch, graphs))
+        return _global(mesh, _staged_core(phys_batch, weights, cfg,
+                                          _graphs_for(phys_batch, graphs)))
 
 
 def stage3_problem(F: int, spec_b: dur_lib.DurationSpec, weights: PhysWeights,
@@ -241,15 +258,18 @@ def solve_physics_durations_batch(
     weights: PhysWeights = PhysWeights(),
     cfg: collocation.SolveConfig = collocation.SolveConfig(),
     graphs: Optional[GraphCache] = None,
+    mesh=None,
 ) -> Tuple[PhysResult, Dict[str, torch.Tensor], np.ndarray]:
     """Batched stage-3 duration refinement + stage-4 frozen re-solve
-    (phys_optim.cpp:663-749). Returns (batched result, batched violation
-    stats, per-sequence durations_ok flags on the host — callers keep the
-    stage-2 result where ok is False, the reference's fallback rule)."""
+    (phys_optim.cpp:663-749), over ``mesh``'s ranks where given. Returns
+    (batched result, batched violation stats, per-sequence durations_ok
+    flags on the host — callers keep the stage-2 result where ok is False,
+    the reference's fallback rule)."""
     spec_b = pad_duration_specs(phys_batch)
+    phys_batch, stage2, spec_b = _local(mesh, phys_batch, stage2, spec_b)
     with full_f32():
-        res, stats, ok = durations_core(phys_batch, stage2, spec_b, weights, cfg,
-                                        _graphs_for(phys_batch, graphs))
+        res, stats, ok = _global(mesh, durations_core(phys_batch, stage2, spec_b, weights, cfg,
+                                                      _graphs_for(phys_batch, graphs)))
     return res, stats, ok.cpu().numpy()
 
 
@@ -259,22 +279,26 @@ def solve_physics_full_batch(
     cfg: collocation.SolveConfig = collocation.SolveConfig(),
     spec_b: Optional[dur_lib.DurationSpec] = None,
     graphs: Optional[GraphCache] = None,
+    mesh=None,
 ):
     """The full staged solve, FIT→DYN→HEIGHT→durations→frozen polish, on the
     batch's device with no host sync until its end, where the
-    ``durations_ok`` flags come back to the host.
+    ``durations_ok`` flags come back to the host; over ``mesh``'s ranks
+    where given, each its slice of the batch.
 
     Returns (res_fit, res_dyn, res_final, stats, durations_ok) — the
     reference's sol_out_no_dynamics / sol_out_dynamics / final artifacts
     (phys_optim.cpp:554-749); results and stats stay on the device.
-    ``spec_b`` defaults to :func:`pad_duration_specs` of the batch (a copy
-    of its schedule to the host, before the solve)."""
+    ``spec_b`` defaults to :func:`pad_duration_specs` of the whole batch (a
+    copy of its schedule to the host, before the solve)."""
     if spec_b is None:
         spec_b = pad_duration_specs(phys_batch)
+    phys_batch, spec_b = _local(mesh, phys_batch, spec_b)
     graphs = _graphs_for(phys_batch, graphs)
     with full_f32():
         res_fit, res_dyn = _staged_core(phys_batch, weights, cfg, graphs)
         res, stats, ok = durations_core(phys_batch, res_dyn, spec_b, weights, cfg, graphs)
+        res_fit, res_dyn, res, stats, ok = _global(mesh, (res_fit, res_dyn, res, stats, ok))
     return res_fit, res_dyn, res, stats, ok.cpu().numpy()
 
 

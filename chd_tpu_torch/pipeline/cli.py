@@ -22,7 +22,14 @@ Ported so far:
 - ``config``: the default ``PipelineConfig`` as JSON.
 The files are ``chd_tpu``'s. ``--device`` names the device of the commands
 that compute and defaults to ``cuda``, which raises where CUDA is absent;
-the last four are host code and take no device.
+the last four are host code and take no device. Started by ``torchrun
+--nproc-per-node N``, a command that computes joins the process group
+(``parallel.distributed.initialize``), each rank on its own card: the
+kinematic stage shards one sequence of ``kinematic.frame_shard_threshold``
+frames or more over the ranks, ``train-contacts`` takes data-parallel steps
+over them (its batches must divide over the ranks), and the rest runs on
+rank 0 alone while the others wait for it. Rank 0 alone writes files and
+prints.
 """
 from __future__ import annotations
 
@@ -174,9 +181,12 @@ def main(argv=None):
         return 0
 
     from ..models import torch_convert
+    from ..parallel import distributed
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
+    distributed.initialize(device)  # joins torchrun's group; a no-op without one
+    say = print if distributed.is_primary() else (lambda *a, **k: None)
 
     if args.cmd == "detect-contacts":
         from ..contact.infer import detect_contacts
@@ -184,30 +194,34 @@ def main(argv=None):
         cfg = _load_config(args)
         model = torch_convert.load_weights(args.weights)
         dirs = _video_dirs(args.data)
-        results = detect_contacts(dirs, model, device=device, image_dims=tuple(cfg.image_dims))
+        results = distributed.on_primary(detect_contacts, dirs, model, device=device,
+                                         image_dims=tuple(cfg.image_dims))
         for d, r in zip(dirs, results):
-            print(f"{d}: {r.shape[0]} frames, contact rate {r.mean():.3f}")
+            say(f"{d}: {r.shape[0]} frames, contact rate {r.mean():.3f}")
         return 0
 
     if args.cmd == "kinematic":
         from .run import run_kinematic_stage
 
-        print(run_kinematic_stage(args.video_dir, _load_config(args), device=device))
+        say(run_kinematic_stage(args.video_dir, _load_config(args), device=device))
         return 0
 
     if args.cmd == "retarget":
         from ..core import bvh
         from ..retarget.mixamo import retarget
 
-        src, _, _ = bvh.load(args.src_bvh)
-        retarget(src, args.character, args.char_bvh, out_bvh=args.out_bvh, device=device)
-        print(args.out_bvh)
+        def run_retarget():
+            src, _, _ = bvh.load(args.src_bvh)
+            retarget(src, args.character, args.char_bvh, out_bvh=args.out_bvh, device=device)
+
+        distributed.on_primary(run_retarget)
+        say(args.out_bvh)
         return 0
 
     if args.cmd == "physics":
         from .run import run_physics_stage
 
-        print(json.dumps(run_physics_stage(args.video_dir, _load_config(args), device=device)))
+        say(json.dumps(run_physics_stage(args.video_dir, _load_config(args), device=device)))
         return 0
 
     if args.cmd == "run":
@@ -215,9 +229,9 @@ def main(argv=None):
 
         cfg = _load_config(args)
         for vd in _video_dirs(args.data):
-            print(f"=== {vd} ===")
+            say(f"=== {vd} ===")
             res = run_pipeline(vd, cfg, char_skel_bvh=args.char_bvh, device=device)
-            print(json.dumps(res["stats"]))
+            say(json.dumps(res["stats"]))
         return 0
 
     from ..contact.data import ContactDataset
@@ -227,27 +241,34 @@ def main(argv=None):
 
     if args.cmd == "train-contacts":
         from ..contact.train import train
+        from ..parallel import mesh as mesh_lib
 
         os.makedirs(args.out, exist_ok=True)
-        train(ds, TrainConfig(epochs=args.epochs, batch_size=args.batch_size), out_dir=args.out)
+        # data-parallel over the ranks; rank 0 alone writes the weights
+        train(ds, TrainConfig(epochs=args.epochs, batch_size=args.batch_size), out_dir=args.out,
+              verbose=distributed.is_primary(),
+              mesh=mesh_lib.make_mesh() if distributed.multi_rank() else None)
         return 0
 
     import numpy as np
 
     from ..contact import evaluate
 
-    model = torch_convert.load_weights(args.weights).to(device)
-    cfg = TrainConfig(joint_set=args.joint_set)
-    if args.full_video:
-        res = evaluate.evaluate_full_video(model, ds, args.split, cfg)
-    else:
-        res = evaluate.evaluate_windows(model, ds, args.split, cfg)
-    merged_pred = res.pop("merged_predictions", None)
-    print(json.dumps(res, indent=2))
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "eval_results.json"), "w") as f:
-            json.dump(res, f, indent=2)
-        if merged_pred is not None:
-            np.save(os.path.join(args.out, "merged_predictions.npy"), merged_pred)
+    def run_eval():
+        model = torch_convert.load_weights(args.weights).to(device)
+        cfg = TrainConfig(joint_set=args.joint_set)
+        if args.full_video:
+            res = evaluate.evaluate_full_video(model, ds, args.split, cfg)
+        else:
+            res = evaluate.evaluate_windows(model, ds, args.split, cfg)
+        merged_pred = res.pop("merged_predictions", None)
+        print(json.dumps(res, indent=2))
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "eval_results.json"), "w") as f:
+                json.dump(res, f, indent=2)
+            if merged_pred is not None:
+                np.save(os.path.join(args.out, "merged_predictions.npy"), merged_pred)
+
+    distributed.on_primary(run_eval)
     return 0

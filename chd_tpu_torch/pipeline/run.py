@@ -19,9 +19,13 @@ on the other's files:
 Every stage runs on ``device`` (default ``cuda``; raises where CUDA is
 absent) in ``dtype``.
 
-``chd_tpu``'s frame-sharded branch for one very long sequence
-(``kinematic.frame_shard_threshold``, over more than one device) waits for
-the multi-card port; here the sequence is solved on one device.
+One very long sequence (``kinematic.frame_shard_threshold`` frames or more,
+in a process group of more than one rank) has its kinematic LM stages
+frame-sharded over every rank (``parallel.longseq``), as ``chd_tpu`` shards
+them over more than one device. In a group of several ranks, rank 0 alone
+writes a stage's files, and every rank waits for them before it goes on; a
+stage that is not sharded runs on rank 0 alone
+(``parallel.distributed.on_primary``).
 """
 from __future__ import annotations
 
@@ -38,6 +42,9 @@ from ..ingest import openpose, totalcap
 from ..kinematics import trajectory as traj_lib
 from ..kinematics.lm import LMConfig
 from ..parallel import batch as batch_lib
+from ..parallel import distributed
+from ..parallel import longseq as longseq_lib
+from ..parallel import mesh as mesh_lib
 from ..physics import collocation, towr_io
 from ..physics.apply import apply_results, remove_heel
 from ..physics.prepare import prepare_input
@@ -61,13 +68,20 @@ def _skel_path(cfg: PipelineConfig) -> str:
 
 
 def run_kinematic_stage(video_dir: str, cfg: PipelineConfig, num_frames: Optional[int] = None,
-                        device="cuda", dtype=torch.float32) -> str:
+                        device="cuda", dtype=torch.float32, mesh=None) -> str:
     """Kinematic optimization of one video dir.
 
     Reads openpose_result/, tracked_results.json, foot_contacts.npy; writes
     kinematic_results/{final_test.bvh, floor_out.txt, foot_contacts.npy}.
     Returns the kinematic_results path. ``device`` defaults to ``cuda`` and
     raises where CUDA is absent.
+
+    The LM stages shard the frame axis (``parallel.longseq``) over ``mesh``
+    where one is given (and run on ``mesh.device``), or over every rank
+    where the sequence reaches ``kinematic.frame_shard_threshold`` frames
+    (0 disables) and the process group has more than one rank. In such a
+    group rank 0 alone writes, and the ranks meet before they return;
+    unsharded, rank 0 alone solves too.
     """
     out_dir = os.path.join(video_dir, "kinematic_results")
     os.makedirs(out_dir, exist_ok=True)
@@ -110,29 +124,59 @@ def run_kinematic_stage(video_dir: str, cfg: PipelineConfig, num_frames: Optiona
     smpl_skel = totalcap.combined_angles_from_smpl(tc.smpl_joint_angles[:F])
     skeleton, names, frametime = bvh.load(_skel_path(cfg))
 
-    res = traj_lib.optimize_trajectory(
-        poses2d, conf2d, pose3d, root_pos, smpl_skel, skeleton, vel_constraints,
+    lm_cfg = LMConfig(max_iters=cfg.kinematic.lm_iters, cg_iters=cfg.kinematic.cg_iters)
+    thresh = cfg.kinematic.frame_shard_threshold
+    if mesh is None and thresh and F >= thresh and distributed.multi_rank():
+        mesh = mesh_lib.make_mesh(model=1)
+
+    def write(res):
+        bvh.save(os.path.join(out_dir, "final_test.bvh"), res.anim, names, frametime=frametime)
+        np.save(os.path.join(out_dir, "foot_contacts.npy"), res.refined_contacts)
+        with open(os.path.join(out_dir, "floor_out.txt"), "w") as f:
+            f.write(" ".join(str(v) for v in res.floor_normal) + "\n")
+            f.write(" ".join(str(v) for v in res.floor_point))
+        return out_dir
+
+    def solve_unsharded():
+        return write(traj_lib.optimize_trajectory(
+            poses2d, conf2d, pose3d, root_pos, smpl_skel, skeleton, vel_constraints,
+            cam_focal=cfg.kinematic.focal,
+            cam_pp=cfg.kinematic.pp,
+            plane_normal=plane_normal,
+            plane_point=plane_point,
+            ik_iterations=cfg.kinematic.ik_iterations,
+            lm_cfg=lm_cfg,
+            device=device,
+            dtype=dtype,
+        ))
+
+    if mesh is None:
+        return distributed.on_primary(solve_unsharded)
+    res = longseq_lib.optimize_trajectory_frame_sharded(
+        poses2d, conf2d, pose3d, root_pos, smpl_skel, skeleton, vel_constraints, mesh,
         cam_focal=cfg.kinematic.focal,
         cam_pp=cfg.kinematic.pp,
         plane_normal=plane_normal,
         plane_point=plane_point,
         ik_iterations=cfg.kinematic.ik_iterations,
-        lm_cfg=LMConfig(max_iters=cfg.kinematic.lm_iters, cg_iters=cfg.kinematic.cg_iters),
-        device=device,
+        lm_cfg=lm_cfg,
         dtype=dtype,
     )
-
-    bvh.save(os.path.join(out_dir, "final_test.bvh"), res.anim, names, frametime=frametime)
-    np.save(os.path.join(out_dir, "foot_contacts.npy"), res.refined_contacts)
-    with open(os.path.join(out_dir, "floor_out.txt"), "w") as f:
-        f.write(" ".join(str(v) for v in res.floor_normal) + "\n")
-        f.write(" ".join(str(v) for v in res.floor_point))
+    if distributed.is_primary():
+        write(res)
+    if distributed.multi_rank():
+        torch.distributed.barrier()  # the files are whole before any rank reads them
     return out_dir
 
 
 def run_retarget_stage(video_dir: str, cfg: PipelineConfig, skel_bvh: Optional[str] = None,
                        device="cuda", dtype=torch.float32) -> str:
-    """final_test.bvh → <character>_out.bvh (run_phys_mocap.py:117-133)."""
+    """final_test.bvh → <character>_out.bvh (run_phys_mocap.py:117-133); on
+    rank 0 alone in a multi-rank group."""
+    return distributed.on_primary(_retarget_stage, video_dir, cfg, skel_bvh, device, dtype)
+
+
+def _retarget_stage(video_dir, cfg, skel_bvh, device, dtype) -> str:
     kin = os.path.join(video_dir, "kinematic_results")
     final = os.path.join(kin, "final_test.bvh")
     out = os.path.join(kin, f"{cfg.character}_out.bvh")
@@ -152,7 +196,13 @@ def run_retarget_stage(video_dir: str, cfg: PipelineConfig, skel_bvh: Optional[s
 def run_physics_stage(video_dir: str, cfg: PipelineConfig, video_name: Optional[str] = None,
                       device="cuda", dtype=torch.float32,
                       graphs: Optional[GraphCache] = None) -> dict:
-    """prepare → solve → artifacts (run_phys_mocap.py:136-201)."""
+    """prepare → solve → artifacts (run_phys_mocap.py:136-201); on rank 0
+    alone in a multi-rank group."""
+    return distributed.on_primary(_physics_stage, video_dir, cfg, video_name, device, dtype,
+                                  graphs)
+
+
+def _physics_stage(video_dir, cfg, video_name, device, dtype, graphs) -> dict:
     device = resolve_device(device)
     kin = os.path.join(video_dir, "kinematic_results")
     char = cfg.character

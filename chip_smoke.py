@@ -201,6 +201,25 @@ The host layer:
     fresh processes: the default config's JSON, the tree of video dirs, and
     no jax or chd_tpu module in either process.
 
+The parallel layer (``chd_tpu_torch.parallel``):
+
+25. ``distributed.initialize()`` without torchrun's variables must join
+    nothing; then, on an in-process NCCL group of world size 1 (a
+    ``HashStore``, rank 0): data-parallel detection at [5]'s 512 x 240
+    (one kernel launch a rank, contacts and probabilities bitwise the
+    unsharded call's, ms a call beside it), 3 sync-BN training steps at
+    batch 64, ``lower``, within [9]'s bounds of the same steps without a
+    mesh, data-parallel ``eval_step`` (one launch, equal loss and counts),
+    and the physics and kinematic batches with the mesh, bitwise equal to
+    the calls without it; ``dryrun_multichip(1, "cuda")`` in a spawned
+    rank, and ``dryrun_multichip(min(count, 4), "cuda")`` where the machine
+    has two cards or more (else a line says it did not run); then the
+    single-process form of ``LONG_SHARDS`` frame shards on the card: [14]'s
+    trajectory-golden gates with both LM stages frame-sharded, eager, at the
+    cut budget ``SHARD_GOLDEN_LM``, a ``LONG_F``-frame clip's sharded probe
+    against the unsharded one (within ``LONG_PROBE_REL``), and its whole
+    refinement at a cut budget (seconds a stage, peak memory).
+
 Then it prints one JSON line on the kernels (the fused-MLP kernel in each of
 its four modes), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -294,6 +313,23 @@ HIGHEST_MAX_D, ONE_PASS_ULPS, MODE_AGREE_MIN = 1e-5, 4, 0.99
 # _infer_batch calls timed by utils.profiling.benchmark, whose mean_s must
 # read at least BENCH_MIN_RATIO of the same calls' CUDA-event time
 TRACE_CALLS, BENCH_ITERS, BENCH_MIN_RATIO = 2, 20, 0.9
+# [25]: the long clip, 60 s at 30 fps, frame-sharded 4 ways in one process,
+# and its refinement's cut budget (IK iterations, LM steps, CG iterations a
+# step, for each LM stage). Its sharded probe (cost, Jᵀr, diag(JᵀJ)) is held
+# to the unsharded one in float32 within LONG_PROBE_REL of the largest
+# element: each is a sum over a frame's residual rows (or, for the cost,
+# over ~1e6 rows) that the two evaluate through differently shaped tensors,
+# so in other orders; float32's 6e-8 unit roundoff over such sums stays near
+# 1e-6 relative, and a halo or ownership fault is O(1) at every shard edge.
+# The sharded LM runs eagerly, 12-18 ms a JᵀJ·v product at the golden's 16
+# frames (launch-bound), so [14]'s gates are held frame-sharded at the cut
+# budget SHARD_GOLDEN_LM (LM steps a stage, CG iterations a step) in place
+# of 50:100 (123 s); the mean joint error, the gate nearest its bound,
+# needs CG 60 (at CG 30-40 it nears or passes 2 cm).
+LONG_F, LONG_SHARDS = 1800, 4
+LONG_IK, LONG_LM = 50, (4, 40)
+LONG_PROBE_REL = 1e-4
+SHARD_GOLDEN_LM = (20, 60)
 
 
 def fail(msg: str) -> None:
@@ -917,14 +953,18 @@ def synth_video_dir(root: str, skel, F: int = 12) -> str:
     return vd
 
 
-def trajectory_golden_gates(g, device, graphs=None, lm_solver="pcg"):
-    """The port's solution of trajectory_golden.npz at its pinned 50:100, and
+def trajectory_golden_gates(g, device, graphs=None, lm_solver="pcg", mesh=None,
+                            lm=(50, 100)):
+    """The port's solution of trajectory_golden.npz at its pinned budget
+    ``lm`` (LM steps a stage, CG iterations a step; 50:100), and
     what the gates of tests/test_goldens.py read from it: floor normal cos,
     plane offset (cm), pruned contacts equal, mean and median joint error
     (cm), median reprojection error and its bound (px), and the stage-2
     objective of both solutions, each scored by the port's residual on the
     CPU in float32 on its own problem. ``lm_solver="banded"`` solves the
-    same problem with the banded direct inner solve ([21])."""
+    same problem with the banded direct inner solve ([21]); a ``mesh``
+    solves it with both LM stages frame-sharded over the mesh
+    (``parallel.longseq``, [25])."""
     import torch
 
     from chd_tpu_torch.characters import defs
@@ -939,10 +979,19 @@ def trajectory_golden_gates(g, device, graphs=None, lm_solver="pcg"):
     problem = dict(pose2d=g["pose2d"], conf2d=g["conf"], pose3d=g["pose3d"],
                    root_pos=g["root"], smpl_angles=g["smpl_angles"],
                    vel_constraints=g["vel_constraints"].astype(float))
-    res = batch_lib.optimize_trajectory_batch(
-        [problem], golden_skeleton(g), cam_focal=tuple(g["cam_focal"]),
-        cam_pp=tuple(g["cam_pp"]), lm_cfg=LMConfig(max_iters=50, cg_iters=100),
-        device=device, ik_solver="lu", graphs=graphs, lm_solver=lm_solver)[0]
+    if mesh is None:
+        res = batch_lib.optimize_trajectory_batch(
+            [problem], golden_skeleton(g), cam_focal=tuple(g["cam_focal"]),
+            cam_pp=tuple(g["cam_pp"]), lm_cfg=LMConfig(*lm),
+            device=device, ik_solver="lu", graphs=graphs, lm_solver=lm_solver)[0]
+    else:
+        from chd_tpu_torch.parallel import longseq
+
+        res = longseq.optimize_trajectory_frame_sharded(
+            *(problem[k] for k in ("pose2d", "conf2d", "pose3d", "root_pos", "smpl_angles")),
+            golden_skeleton(g), problem["vel_constraints"], mesh,
+            cam_focal=tuple(g["cam_focal"]), cam_pp=tuple(g["cam_pp"]),
+            lm_cfg=LMConfig(*lm))
     F = g["pose2d"].shape[0]
     n_ref, p_ref = g["out_plane_normal"], g["out_plane_point"]
     n_got = np.asarray(res.floor_normal, np.float64)
@@ -2560,6 +2609,250 @@ def host_layer_phase(torch, dev, smi: str) -> None:
     print(f"    [24] took {time.perf_counter() - t_phase:.1f} s")
 
 
+def parallel_phase(torch, dev, smi: str) -> dict:
+    """[25]: the parallel layer (``chd_tpu_torch.parallel``) on the card.
+    Returns the kernel's launches on the data-parallel paths."""
+    import torch.distributed as dist
+
+    from chd_tpu_torch.contact import data as data_lib
+    from chd_tpu_torch.contact import infer, synth
+    from chd_tpu_torch.contact import train as train_lib
+    from chd_tpu_torch.kinematics import batch as kin_batch
+    from chd_tpu_torch.kinematics import trajectory as traj_lib
+    from chd_tpu_torch.kinematics.ik import IKConfig
+    from chd_tpu_torch.kinematics.lm import LMConfig, frame_coloring_masks
+    from chd_tpu_torch.models import contact_mlp, torch_convert
+    from chd_tpu_torch.ops.fused_mlp import fused_mlp
+    from chd_tpu_torch.parallel import batch as phys_batch
+    from chd_tpu_torch.parallel import distributed, longseq
+    from chd_tpu_torch.parallel import mesh as mesh_lib
+    from chd_tpu_torch.parallel.dryrun import dryrun_multichip
+    from chd_tpu_torch.physics import collocation
+    from chd_tpu_torch.physics.synth import walking_input
+    from chd_tpu_torch.physics.types import PhysWeights
+
+    t_phase = time.perf_counter()
+    env = [k for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR") if k in os.environ]
+    joined = distributed.initialize()
+    print(f"[25] the parallel layer on the card, {smi}: distributed.initialize() with "
+          f"torchrun's variables {env or 'unset'}: {joined}, group initialized "
+          f"{dist.is_initialized()}")
+    if joined or dist.is_initialized():
+        fail("[25] initialize() joined a group without torchrun's environment")
+    distributed.initialize("cuda", store=dist.HashStore(), world_size=1, rank=0, local_rank=0,
+                           timeout=300)
+    launches = {}
+    try:
+        mesh = mesh_lib.make_mesh()
+        print(f"    in-process group: backend {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}, mesh {mesh.shape} on {mesh.device}")
+
+        # data-parallel detection at [5]'s batch, the kernel on every rank
+        golden = np.load(GOLDEN)
+        gmodel = torch_convert.from_state_dict(
+            {key[3:]: golden[key] for key in golden.files if key.startswith("sd.")})
+        det = infer.ContactDetector(gmodel, device=dev)
+        big = torch.from_numpy(synth_videos(BIG_V, BIG_F, seed=0)).to(dev)
+        c_one, p_one = det.infer(big)
+        torch.cuda.synchronize()
+        fused_mlp.launches = 0
+        c_dp, p_dp = det.infer(big, mesh=mesh)
+        torch.cuda.synchronize()
+        launches["dp_detect"] = fused_mlp.launches
+        t_one = statistics.median(wall(lambda: det.infer(big))[0] for _ in range(3))
+        t_dp = statistics.median(wall(lambda: det.infer(big, mesh=mesh))[0] for _ in range(3))
+        same = torch.equal(c_dp, c_one) and torch.equal(p_dp, p_one)
+        print(f"    data-parallel detection, V={BIG_V} F={BIG_F}, golden weights: fused_mlp "
+              f"launches {launches['dp_detect']} (1 a rank), contacts and probabilities equal to "
+              f"[5]'s unsharded call {same}; {t_dp * 1e3:.3f} ms a call against "
+              f"{t_one * 1e3:.3f} ms unsharded (median of 3 synced)")
+        if launches["dp_detect"] != 1 or not same:
+            fail("[25] data-parallel detection: launches or contacts differ")
+
+        # 3 sync-BN steps at [9]'s batch, against the same steps without a mesh
+        cfg = train_lib.TrainConfig(lr=3e-4)
+        ds = synth.learnable_dataset(cfg.batch_size + 16, TRAIN_F, seed=0, n_holdout=16,
+                                     device=dev)
+        train_op, train_ct = ds.split_arrays("train")
+        gen = torch.Generator(device=dev).manual_seed(9)
+        steps = []
+        for _ in range(3):
+            feats, labels = data_lib.sample_train_windows(
+                gen, train_op, train_ct, cfg.window_size, cfg.pred_size, cfg.joint_subset,
+                cfg.noise_dev)
+            steps.append((feats, labels, contact_mlp.dropout_keep_mask(
+                (cfg.batch_size, contact_mlp.HIDDEN[2]), gen, dev)))
+
+        def run_steps(m_mesh):
+            m = contact_mlp.init(cfg.model_config(), torch.Generator().manual_seed(3)).to(dev)
+            opt = train_lib.make_optimizer(m, cfg)
+            g_min = {k: torch.full_like(p, float("inf")) for k, p in m.named_parameters()}
+            for feats, labels, mask in steps:
+                before = {k: p.detach().clone() for k, p in m.named_parameters()}
+                train_lib.train_step(m, opt, None, None, cfg, None, windows=(feats, labels),
+                                     dropout_mask=mask, mesh=m_mesh)
+                for k, p in m.named_parameters():
+                    g_min[k] = torch.minimum(g_min[k],
+                                             (p.grad + cfg.weight_decay * before[k]).abs())
+            return m, g_min
+
+        m_dp, _ = run_steps(mesh)
+        m_one, g_min = run_steps(None)
+        one = dict(m_one.named_parameters())
+        d_grad = max(float((p.grad - one[k].grad).abs().max())
+                     for k, p in m_dp.named_parameters())
+        firm = {k: g >= G_MIN for k, g in g_min.items()}
+        d = {k: (p - one[k]).detach().abs() for k, p in m_dp.named_parameters()}
+        d_param = max(float(d[k][firm[k]].max()) if firm[k].any() else 0.0 for k in d)
+        d_noise = max(float(d[k][~firm[k]].max()) if (~firm[k]).any() else 0.0 for k in d)
+        bufs = dict(m_one.named_buffers())
+        d_bn = max(float((b.float() - bufs[k].float()).abs().max())
+                   for k, b in m_dp.named_buffers())
+        print(f"    3 sync-BN steps over the mesh, batch {cfg.batch_size} of {TRAIN_F}-frame "
+              f"sequences, lower: against the same steps without a mesh, max|d| grads "
+              f"{d_grad:.3e} (<= {GRAD_MAX_D}), params {d_param:.3e} where |grad + L2| >= "
+              f"{G_MIN} (<= {PARAM_MAX_D}), {d_noise:.3e} on the others (<= "
+              f"{6 * cfg.lr:.1e}), BN stats {d_bn:.3e} (<= {BN_MAX_D})")
+        if (d_grad > GRAD_MAX_D or d_param > PARAM_MAX_D or d_noise > 6 * cfg.lr
+                or d_bn > BN_MAX_D):
+            fail("[25] the sync-BN steps leave [9]'s bounds")
+        val_op, val_ct = ds.split_arrays("val")
+        fused_mlp.launches = 0
+        loss_dp, conf_dp = train_lib.eval_step(m_dp, val_op, val_ct, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        launches["dp_eval"] = fused_mlp.launches
+        loss_one, conf_one = train_lib.eval_step(m_dp, val_op, val_ct, cfg)
+        d_loss = abs(float(loss_dp) - float(loss_one))
+        print(f"    data-parallel eval_step on {val_op.shape[0]} held-out sequences: fused_mlp "
+              f"launches {launches['dp_eval']}, loss |d| {d_loss:.3e} (<= 1e-6), confusion "
+              f"counts equal {torch.equal(conf_dp, conf_one)}")
+        if launches["dp_eval"] != 1 or d_loss > 1e-6 or not torch.equal(conf_dp, conf_one):
+            fail("[25] data-parallel evaluation differs from the unsharded one")
+
+        # the physics and kinematic batches with the mesh, against without
+        phys_cfg = collocation.SolveConfig(1, 1, 1, 1, lm=LMConfig(3, 10, 1e-2))
+        batched, _ = phys_batch.pad_phys_inputs([walking_input(24, seed=i) for i in range(2)],
+                                                device=dev)
+        t_p1, a = wall(lambda: phys_batch.solve_physics_full_batch(batched, PhysWeights(),
+                                                                   phys_cfg))
+        t_p2, b = wall(lambda: phys_batch.solve_physics_full_batch(batched, PhysWeights(),
+                                                                   phys_cfg, mesh=mesh))
+        phys_same = (all(torch.equal(x, y) for ra, rb in zip(a[:3], b[:3])
+                         for x, y in zip(ra, rb))
+                     and all(torch.equal(a[3][k], b[3][k]) for k in a[3])
+                     and np.array_equal(a[4], b[4]))
+        skel = golden_skeleton(np.load(TRAJ_GOLDEN))
+        rng = np.random.default_rng(25)
+        problems = [kin_problem(rng, skel, 24) for _ in range(2)]
+        kin_kw = dict(ik_iterations=20, lm_cfg=LMConfig(5, 15), device=dev)
+        t_k1, ka = wall(lambda: kin_batch.optimize_trajectory_batch(problems, skel, **kin_kw))
+        t_k2, kb = wall(lambda: kin_batch.optimize_trajectory_batch(problems, skel, mesh=mesh,
+                                                                    **kin_kw))
+        kin_same = all(np.array_equal(x.pose3d, y.pose3d)
+                       and np.array_equal(x.vel_constraints, y.vel_constraints)
+                       and np.array_equal(x.floor_normal, y.floor_normal)
+                       for x, y in zip(ka, kb))
+        print(f"    solve_physics_full_batch of 2 x 24 frames (LM 3:10, CUDA graphs) with the "
+              f"mesh: bitwise equal to the call without it {phys_same} ({t_p2:.2f} s against "
+              f"{t_p1:.2f} s); optimize_trajectory_batch of 2 x 24 frames (IK 20, LM 5:15) with "
+              f"the mesh: equal {kin_same} ({t_k2:.2f} s against {t_k1:.2f} s)")
+        if not (phys_same and kin_same):
+            fail("[25] a batch solved over the mesh differs from the unsharded call")
+    finally:
+        dist.destroy_process_group()
+
+    # the multi-rank dry run: one NCCL rank here, every card where there are more
+    t, line = wall(lambda: dryrun_multichip(1, "cuda"))
+    print(f"    dryrun_multichip(1, \"cuda\") in a spawned rank: {t:.1f} s")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        t, line = wall(lambda: dryrun_multichip(min(count, 4), "cuda"))
+        print(f"    dryrun_multichip({min(count, 4)}, \"cuda\"): {t:.1f} s")
+    else:
+        print(f"    the multi-card dry run did not run: torch sees {count} card (NCCL "
+              "takes one rank a card, so two ranks need two)")
+
+    # the single-process form: n frame shards on this card
+    mesh4 = mesh_lib.local_mesh(LONG_SHARDS, device=dev)
+    g = np.load(TRAJ_GOLDEN)
+    t_g, (_, gates) = wall(lambda: trajectory_golden_gates(g, dev, mesh=mesh4,
+                                                           lm=SHARD_GOLDEN_LM))
+    print(f"    trajectory golden with both LM stages frame-sharded {LONG_SHARDS} ways in one "
+          f"process (F={g['pose2d'].shape[0]}, {g['pose2d'].shape[0] // LONG_SHARDS} frames a "
+          f"shard, IK 200 LU, LM {SHARD_GOLDEN_LM[0]}:{SHARD_GOLDEN_LM[1]} eager, cut from "
+          f"50:100): {t_g:.2f} s; floor cos {gates['cos']:.6f} "
+          f"(> 0.9994), offset {gates['offset']:.3f} cm (< 2), contacts equal "
+          f"{gates['contacts_equal']}, joint error mean {gates['mean_err']:.3f} / median "
+          f"{gates['median_err']:.3f} cm (< 2), reprojection median {gates['median_px']:.2f} "
+          f"px (< {gates['px_bound']:.2f}), stage-2 objective {gates['cost']:.1f} vs the "
+          f"golden's {gates['golden_cost']:.1f} (<= x1.001)")
+    if not golden_gates_pass(gates):
+        fail(f"[25] the trajectory golden's gates failed frame-sharded: {gates}")
+
+    skel = golden_skeleton(g)
+    parents = tuple(skel.parents)
+    F, D = LONG_F, 3 + 3 * len(parents)
+    prob = kin_problem(np.random.default_rng(26), skel, F)
+    arrs, _ = kin_batch.prepare_batch_arrays([prob], skel, device=dev)
+    consts = kin_batch.BatchConsts(parents, F, IKConfig(iterations=1), dev, torch.float32)
+    x0 = kin_batch.initial_x(arrs["rot0"], arrs["pos0"])
+    normal = torch.tensor([[0.0, -1.0, 0.0]], device=dev)
+    point = torch.tensor([[0.0, 95.0, 0.0]], device=dev)
+    data = kin_batch.make_data(arrs, consts, arrs["vc"], normal, point)
+    w = traj_lib.STAGE2
+    torch.cuda.reset_peak_memory_stats()
+    t_sh, (c_sh, g_sh, d_sh) = wall(lambda: longseq.probe_grad_diag(
+        x0.reshape(F, D), data, w, parents, mesh4))
+    mem_sh = torch.cuda.max_memory_allocated()
+
+    def unsharded_probe():
+        r, vjp_fn = torch.func.vjp(lambda x: consts.layout.residual(x, data, w), x0)
+        _, lin = torch.func.vjp(lambda cot: vjp_fn(cot)[0], torch.zeros_like(r))
+        masks = frame_coloring_masks(F, D, device=dev)
+        diag = torch.func.vmap(lambda m: m * vjp_fn(lin(m)[0])[0])(masks[:, None]).sum(0)
+        return 0.5 * (r * r).sum(), vjp_fn(r)[0].reshape(F, D), diag.reshape(F, D)
+
+    torch.cuda.reset_peak_memory_stats()
+    t_un, (c_un, g_un, d_un) = wall(unsharded_probe)
+    mem_un = torch.cuda.max_memory_allocated()
+    rel = {"cost": abs(float(c_sh) - float(c_un)) / abs(float(c_un)),
+           "grad": float((g_sh - g_un).abs().max() / g_un.abs().max()),
+           "diag": float((d_sh - d_un).abs().max() / d_un.abs().max())}
+    print(f"    long clip, F={F} ({F / 30:.0f} s at 30 fps), 28 joints, float32: the probe "
+          f"frame-sharded "
+          f"{LONG_SHARDS} ways ({t_sh:.2f} s, {mem_sh / 2**30:.2f} GiB at peak) against the "
+          f"unsharded one ({t_un:.2f} s, {mem_un / 2**30:.2f} GiB): relative max|d| cost "
+          f"{rel['cost']:.3e}, Jᵀr {rel['grad']:.3e}, diag {rel['diag']:.3e} (each <= "
+          f"{LONG_PROBE_REL})")
+    if not all(v <= LONG_PROBE_REL for v in rel.values()):
+        fail(f"[25] the long clip's sharded probe differs from the unsharded one: {rel}")
+
+    stamps = [("start", time.perf_counter())]
+
+    def hook(name):
+        torch.cuda.synchronize()
+        stamps.append((name, time.perf_counter()))
+
+    torch.cuda.reset_peak_memory_stats()
+    res = longseq.optimize_trajectory_frame_sharded(
+        prob["pose2d"], prob["conf2d"], prob["pose3d"], prob["root_pos"], prob["smpl_angles"],
+        skel, prob["vel_constraints"], mesh4, ik_iterations=LONG_IK,
+        lm_cfg=LMConfig(*LONG_LM), stage_hook=hook)
+    peak = torch.cuda.max_memory_allocated()
+    per_stage = ", ".join(f"{name} {t - stamps[i][1]:.2f} s"
+                          for i, (name, t) in enumerate(stamps[1:]))
+    ok = (res.pose3d.shape == (F, 28, 3) and np.isfinite(res.pose3d).all()
+          and res.refined_contacts.shape == (F, 4))
+    print(f"    its refinement frame-sharded {LONG_SHARDS} ways (cut from IK 200, LM 50:100 to "
+          f"IK {LONG_IK} LU, LM {LONG_LM[0]}:{LONG_LM[1]} a stage, eager): {per_stage}; "
+          f"{stamps[-1][1] - stamps[0][1]:.2f} s in all, {peak / 2**30:.2f} GiB at peak; "
+          f"finite joints of the clip's shape {ok}")
+    if not ok:
+        fail("[25] the long clip's sharded refinement is not finite or of the wrong shape")
+    print(f"    [25] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _t(a):
     import torch
 
@@ -2599,6 +2892,7 @@ def main() -> None:
     modes = precision_phase(torch, dev, smi)
     library_phase(torch, dev)
     host_layer_phase(torch, dev, smi)
+    entry["launches_by_path"].update(parallel_phase(torch, dev, smi))
 
     if "jax" in sys.modules or any(m.split(".")[0] == "chd_tpu" for m in sys.modules):
         fail("jax or chd_tpu was imported")
