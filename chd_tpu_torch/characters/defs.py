@@ -1,5 +1,5 @@
 """Skeleton index tables and optimization weight vectors (the port's copy of
-the tables of chd_tpu/characters/defs.py that its modules read).
+the tables of chd_tpu/characters/defs.py).
 
 The "combined skeleton" (BODY_25's 25 joints + 3 SMPL spine joints = 28
 joints) is the pipeline's central data model. Joints come in two orders:
@@ -12,8 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-# --- BODY_25 (OpenPose) and SMPL roots ---------------------------------------
+# --- BODY_25 (OpenPose) -----------------------------------------------------
 BODY_25_ROOT_IDX = 8
+BODY_25_NUM_JOINTS = 25
 # BODY_25's bones, as (a, b) joint pairs (viz.keypoints2d draws them)
 BODY_25_ADJ_LIST = np.array(
     [
@@ -23,12 +24,38 @@ BODY_25_ADJ_LIST = np.array(
         [22, 23], [11, 24],
     ]
 )
+BODY_25_PROJ_WEIGHTS = np.array(
+    [0.5, 0.5, 0.5, 0.1, 0.1, 0.5, 0.1, 0.1, 0.0, 1.0, 0.1, 0.1, 1.0,
+     0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1]
+)
+BODY_25_SMOOTH_WEIGHTS = np.array(
+    [2.5, 2.5, 2.5, 1.5, 1.0, 2.5, 1.5, 1.0, 1.0, 2.5, 1.5, 1.0, 2.5,
+     1.5, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]
+)
+
+# --- SMPL --------------------------------------------------------------------
 SMPL_ROOT_IDX = 0
 SMPL_SPINE_JOINTS = np.array([3, 6, 9])
+SMPL_NUM_JOINTS = 22
+SMPL_ADJ_LIST = np.array(
+    [
+        [11, 8], [8, 5], [5, 2], [2, 0], [10, 7], [7, 4], [4, 1], [1, 0],
+        [0, 3], [3, 6], [6, 9], [9, 12], [12, 15], [12, 13], [13, 16],
+        [16, 18], [18, 20], [12, 14], [14, 17], [17, 19], [19, 21],
+    ]
+)
 
 # --- Combined model: BODY_25 ∪ SMPL spine (28 joints, data order) -----------
 COMBINED_NUM_JOINTS = 28
 COMBINED_ROOT_IDX = 8  # in BODY_25/data order (MidHip)
+COMBINED_ADJ_LIST = np.array(
+    [
+        [1, 27], [27, 26], [26, 25], [25, 8], [1, 2], [1, 5], [2, 3], [3, 4],
+        [5, 6], [6, 7], [8, 9], [9, 10], [10, 11], [8, 12], [12, 13],
+        [13, 14], [1, 0], [0, 15], [15, 17], [0, 16], [16, 18], [14, 19],
+        [19, 20], [14, 21], [11, 22], [22, 23], [11, 24],
+    ]
+)
 
 # Per-joint optimization weight vectors in DATA order: projection is zero on
 # the root and the spine.
@@ -56,12 +83,14 @@ COMBINED_DATA_TO_SKEL = _inv
 
 COMBINED_SKEL_ROOT_IDX = 0  # MidHip comes first in skeleton order
 COMBINED_SKEL_SPINE_JOINTS = np.array([13, 14, 15])
+COMBINED_SKEL_NECK_JOINT = 16
 # heel/toe joints in skeleton order: LHeel, LBigToe, LSmallToe, RHeel,
 # RBigToe, RSmallToe
 COMBINED_SKEL_FEET_IDX = np.array([4, 5, 6, 10, 11, 12])
 
 # Contact-label column → data-order joints carrying the velocity constraint:
 # labels are [Lheel, Ltoe, Rheel, Rtoe]; toes fan out to big+small toe joints.
+CONTACT_LABEL_NAMES = ("left_heel", "left_toe", "right_heel", "right_toe")
 CONTACT_TO_DATA_JOINTS = {
     0: [21],        # LHeel
     1: [19, 20],    # LBigToe, LSmallToe
@@ -69,8 +98,14 @@ CONTACT_TO_DATA_JOINTS = {
     3: [22, 23],    # RBigToe, RSmallToe
 }
 
-# --- OpenPose joint subsets of the contact model ------------------------------
+# --- OpenPose lower body and the joint subsets of the contact model ----------
 OP_ROOT_JOINT = 8
+OP_LOWER_JOINTS = np.array([8, 9, 10, 11, 12, 13, 14, 19, 20, 21, 22, 23, 24])
+OP_LOWER_JOINT_NAMES = (
+    "MidHip", "RHip", "RKnee", "RAnkle", "LHip", "LKnee", "LAnkle",
+    "LBigToe", "LSmallToe", "LHeel", "RBigToe", "RSmallToe", "RHeel",
+)
+OP_LOWER_PARENTS = np.array([-1, 0, 1, 2, 0, 4, 5, 6, 7, 6, 3, 10, 3])
 OP_JOINT_SUBSETS = {
     "lower": list(range(8, 15)) + list(range(19, 25)),
     "lower_knees": [10, 11, 13, 14, 19, 20, 21, 22, 23, 24],

@@ -23,6 +23,13 @@ mask from the same generator and keeps its slice, BN's statistics are
 all-reduced sums (sync-BN), the loss is the global mean and the gradients
 are summed over the ranks before Adam, so every rank takes the global
 batch's step and keeps equal weights and Adam state.
+
+Tensor parallelism (``chd_tpu`` places the parameters, BN state and Adam
+moments by ``contact_model_shardings`` over the mesh's "model" axis):
+``train_step`` and ``eval_step`` also take a ``parallel.tensor``
+``TensorParallelContactMLP`` with the mesh it is sharded over. Its shards'
+gradients are summed over the batch group alone, and Adam steps each shard.
+``train`` is data-parallel only, as ``chd_tpu``'s ``train`` has no mesh.
 """
 from __future__ import annotations
 
@@ -32,12 +39,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..characters.defs import OP_JOINT_SUBSETS
 from ..models import contact_mlp, torch_convert
 from ..models.contact_mlp import ContactMLP
 from ..ops.fused_mlp import fused_mlp
 from ..parallel import mesh as mesh_lib
+from ..parallel import tensor
 from ..utils import metrics as metrics_lib
 from ..utils.precision import full_f32
 from . import data as data_lib
@@ -97,15 +106,16 @@ def loss_and_logits(model: ContactMLP, feats: torch.Tensor, labels: torch.Tensor
     return bce.sum() / (mesh.global_rows(bce.shape[0]) * pred_size * 4), logits
 
 
-def _sum_grads(model: ContactMLP, mesh) -> None:
-    """Every parameter's gradient summed over the ranks, in one all-reduce."""
+def _sum_grads(model: nn.Module, mesh) -> None:
+    """Every parameter's gradient summed over the batch shards' ranks, in one
+    all-reduce (a tensor-parallel model's shards: their own gradients)."""
     params = [p for p in model.parameters() if p.grad is not None]
     flat = mesh.all_sum(torch.cat([p.grad.reshape(-1) for p in params]))
     for p, g in zip(params, flat.split([p.numel() for p in params])):
         p.grad.copy_(g.view_as(p.grad))
 
 
-def train_step(model: ContactMLP, opt: torch.optim.Optimizer, batch_op: torch.Tensor,
+def train_step(model: nn.Module, opt: torch.optim.Optimizer, batch_op: torch.Tensor,
                batch_contacts: torch.Tensor, cfg: TrainConfig, generator: torch.Generator,
                *, windows: Optional[Batch] = None, dropout_mask: Optional[torch.Tensor] = None,
                mesh=None) -> Tuple[torch.Tensor, metrics_lib.Confusion]:
@@ -116,7 +126,8 @@ def train_step(model: ContactMLP, opt: torch.optim.Optimizer, batch_op: torch.Te
     With ``mesh`` the batch, windows and mask given (or drawn) are the
     global batch's, the same on every rank; the step is the global batch's
     (sync-BN, summed gradients), and the loss and counts are global. The
-    batch must divide over the mesh's batch shards."""
+    batch must divide over the mesh's batch shards. ``model`` is a
+    ``ContactMLP`` or a ``TensorParallelContactMLP`` sharded over ``mesh``."""
     if windows is None:
         windows = data_lib.sample_train_windows(
             generator, batch_op, batch_contacts, cfg.window_size, cfg.pred_size,
@@ -163,23 +174,31 @@ def train_epoch(model: ContactMLP, opt: torch.optim.Optimizer, train_op: torch.T
     return torch.stack(losses), conf
 
 
-def eval_layers(model: ContactMLP, cfg: TrainConfig, use_conv: bool):
-    """The model's BN-folded layers for the fused-MLP kernel."""
-    return infer.mlp_layers(contact_mlp.fold_batchnorm(model), window_size=cfg.window_size,
+def eval_layers(model: nn.Module, cfg: TrainConfig, use_conv: bool):
+    """The model's BN-folded layers for the fused-MLP kernel (a
+    tensor-parallel model's gathered over its mesh's "model" axis)."""
+    if isinstance(model, tensor.TensorParallelContactMLP):
+        folded = tensor.fold_batchnorm(model)
+    else:
+        folded = contact_mlp.fold_batchnorm(model)
+    return infer.mlp_layers(folded, window_size=cfg.window_size,
                             joint_subset=cfg.joint_subset,
                             use_confidence=cfg.use_confidence, use_conv=use_conv)
 
 
 @torch.no_grad()
-def eval_step(model: ContactMLP, op_data: torch.Tensor, contacts: torch.Tensor,
+def eval_step(model: nn.Module, op_data: torch.Tensor, contacts: torch.Tensor,
               cfg: TrainConfig, overlap: bool = False, mlp=fused_mlp, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Window-level evaluation of a split: the mean loss and the (P, 4)
     confusion counts (tp, fp, fn, tn) of each target frame, on the device.
     The windows' rows run through ``mlp`` (the kernel, or its plain
     version) on the folded layers. With ``mesh`` each rank evaluates its
-    contiguous part of the split (``Mesh.split_slice``), and the loss's sum
-    and count and the confusion counts are summed over the ranks."""
+    contiguous part of the split (``Mesh.split_slice``: the "model" ranks
+    of one batch shard share it), and the loss's sum and count and the
+    confusion counts are summed over the batch shards' ranks. A
+    tensor-parallel model's folded layers are gathered first, so the kernel
+    runs the whole model on the rank's rows."""
     if mesh is not None:
         rows = mesh.split_slice(op_data.shape[0])
         op_data, contacts = op_data[rows], contacts[rows]
@@ -217,7 +236,12 @@ def train(dataset: data_lib.ContactDataset, cfg: TrainConfig = TrainConfig(),
     data-parallel steps of ``train_step`` (every batch, the ragged tail's
     too, must divide over the mesh's batch shards); validation runs
     ``eval_step`` on each rank's part of the split, and rank 0 alone writes
-    the weights."""
+    the weights. A mesh with a "model" axis over 1 raises: ``chd_tpu``'s
+    ``train`` has no tensor-parallel form."""
+    if mesh is not None and mesh.n_model > 1:
+        raise ValueError(f"train() is data-parallel only, not over a model axis of "
+                         f"{mesh.n_model}: shard a model with parallel.tensor."
+                         "shard_contact_model and step it with train_step")
     device = dataset.op_data.device
     model = contact_mlp.init(cfg.model_config(), torch.Generator().manual_seed(cfg.seed))
     model = model.to(device)

@@ -1,0 +1,1 @@
+from .ik import IKConfig, solve_ck_ik

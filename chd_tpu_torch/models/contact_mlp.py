@@ -22,12 +22,13 @@ mask or generator, never the global RNG.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 HIDDEN = (1024, 512, 128, 32)
+DROPOUT_LAYER = 3          # dropout applied to the 128-d activations, before linear3
 DROPOUT_RATE = 0.3
 BN_MOMENTUM = 0.1  # torch BatchNorm1d default
 BN_EPS = 1e-5
@@ -58,7 +59,7 @@ class ContactMLP(nn.Module):
         dims = [in_dim, *HIDDEN, out_dim]
         layers: List[nn.Module] = []
         for i in range(len(HIDDEN)):
-            if i == len(HIDDEN) - 1:
+            if i == DROPOUT_LAYER:
                 layers.append(nn.Dropout(DROPOUT_RATE))
             layers += [nn.Linear(dims[i], dims[i + 1]),
                        nn.BatchNorm1d(dims[i + 1], eps=BN_EPS), nn.ReLU()]
@@ -97,6 +98,18 @@ class ContactMLP(nn.Module):
 
     def batchnorms(self) -> List[nn.BatchNorm1d]:
         return [self.model[i] for i in BN_IDX]
+
+    def trees(self) -> Tuple[Dict, Dict]:
+        """The module's own tensors as ``chd_tpu``'s (params, state) trees:
+        ``linear{i}.w/b``, ``bn{i}.scale/bias`` and ``bn{i}.mean/var``."""
+        params: Dict = {}
+        state: Dict = {}
+        for i, lin in enumerate(self.linears()):
+            params[f"linear{i}"] = {"w": lin.weight, "b": lin.bias}
+        for i, bn in enumerate(self.batchnorms()):
+            params[f"bn{i}"] = {"scale": bn.weight, "bias": bn.bias}
+            state[f"bn{i}"] = {"mean": bn.running_mean, "var": bn.running_var}
+        return params, state
 
 
 def _batch_norm_train(bn: nn.BatchNorm1d, h: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -143,6 +156,15 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.clamp(z, min=0.0) - z * labels + torch.log1p(torch.exp(-z.abs()))
 
 
+def fold_rows(w: torch.Tensor, b: torch.Tensor, bn: nn.BatchNorm1d
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode ``bn`` folded into the linear layer (w (out, in), b (out,))
+    before it: each output row on its own, so a slice of rows folds to the
+    same slice of the fold."""
+    scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+    return w * scale[:, None], (b - bn.running_mean) * scale + bn.bias
+
+
 @torch.no_grad()
 def fold_batchnorm(model: ContactMLP) -> Dict[str, List[torch.Tensor]]:
     """Fold eval-mode BN into the preceding linear layers.
@@ -156,10 +178,7 @@ def fold_batchnorm(model: ContactMLP) -> Dict[str, List[torch.Tensor]]:
     for i, lin in enumerate(model.linears()):
         w, b = lin.weight.detach(), lin.bias.detach()
         if i < len(bns):
-            bn = bns[i]
-            scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
-            w = w * scale[:, None]
-            b = (b - bn.running_mean) * scale + bn.bias
+            w, b = fold_rows(w, b, bns[i])
         ws.append(w.clone())
         bs.append(b.clone())
     return {"w": ws, "b": bs}

@@ -43,7 +43,10 @@ def from_state_dict(sd: Mapping[str, object]) -> ContactMLP:
 
 
 def from_jax_params(params: Dict, state: Dict) -> ContactMLP:
-    """``chd_tpu`` (params, state) pytrees → ``ContactMLP``."""
+    """``chd_tpu`` (params, state) pytrees → ``ContactMLP``. Arrays that
+    ``chd_tpu`` placed by its ``contact_model_shardings`` come whole through
+    ``np.asarray``; ``parallel.tensor.shard_contact_model`` then takes this
+    process's shards of the model."""
     sd = {}
     for i, li in enumerate(LINEAR_IDX):
         sd[f"model.{li}.weight"] = params[f"linear{i}"]["w"]
@@ -58,18 +61,12 @@ def from_jax_params(params: Dict, state: Dict) -> ContactMLP:
 
 def to_jax_params(model: ContactMLP) -> Tuple[Dict, Dict]:
     """``ContactMLP`` → ``chd_tpu``'s (params, state) pytrees of float32
-    numpy arrays (copies, on the host)."""
-    def arr(t):
-        return t.detach().to("cpu", torch.float32).numpy().copy()
-
-    params: Dict = {}
-    state: Dict = {}
-    for i, lin in enumerate(model.linears()):
-        params[f"linear{i}"] = {"w": arr(lin.weight), "b": arr(lin.bias)}
-    for i, bn in enumerate(model.batchnorms()):
-        params[f"bn{i}"] = {"scale": arr(bn.weight), "bias": arr(bn.bias)}
-        state[f"bn{i}"] = {"mean": arr(bn.running_mean), "var": arr(bn.running_var)}
-    return params, state
+    numpy arrays (copies, on the host); a tensor-parallel model's after
+    ``parallel.tensor.gather_contact_model``."""
+    return tuple({mod: {leaf: t.detach().to("cpu", torch.float32).numpy().copy()
+                        for leaf, t in leaves.items()}
+                  for mod, leaves in tree.items()}
+                 for tree in model.trees())
 
 
 def save_npz(path: str, model: ContactMLP) -> None:

@@ -5,16 +5,20 @@
 ``"cpu"``; NCCL on ``"cuda"``, one card a rank, so it needs ``n`` cards) and
 runs in them:
 
-1. a data-parallel contact-training step (sync-BN, summed gradients) over a
-   ("data", "model") mesh, against the same step on the global batch in one
-   process;
-2. the same step over a ("slice", "data", "model") mesh of 2 slices, where
-   ``n >= 4`` and even;
-3. the sharded physics batch (``solve_physics_full_batch(mesh=...)``), its
-   outputs permuted alike when its inputs are: per-sequence solves share no
-   state, so moving a sequence to another rank may only move its row;
+1. a dp x tp contact-training step over a ("data", "model") mesh with
+   "model" 2 where ``n`` is even (as ``chd_tpu``'s dry run lays it), else 1:
+   the model sharded by ``contact_model_shardings``
+   (``parallel.tensor``), sync-BN over "data", summed gradients, against
+   the unsharded step on the global batch in one process;
+2. the same step over a ("slice", "data", "model") mesh of 2 slices and
+   "model" 1, where ``n >= 4`` and even;
+3. the sharded physics batch (``solve_physics_full_batch(mesh=...)``, one
+   sequence a "data" shard), its outputs permuted alike when its inputs
+   are: per-sequence solves share no state, so moving a sequence to another
+   rank may only move its row;
 4. the frame-sharded LM's probe (``longseq.probe_grad_diag``: cost, Jᵀr,
-   diag(JᵀJ)) on an n-way frame shard against the unsharded computation.
+   diag(JᵀJ)) on an n-way frame shard (a mesh of its own, "model" 1)
+   against the unsharded computation.
 
 It prints one ``dryrun_multichip OK`` line. ``device`` is the caller's choice
 and defaults to ``"cuda"``, like every entry point of the port: with fewer
@@ -141,35 +145,37 @@ def _dryrun_rank(n: int) -> str:
         print(f"dryrun [{label}] rank {dist.get_rank()} t={time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
 
-    mesh = mesh_lib.make_mesh()
-    loss, d_grads = _dp_train_check(mesh)
-    mark("train dp")
+    mesh = mesh_lib.make_mesh(model=2 if n % 2 == 0 and n >= 2 else 1)
+    loss, d_grads = _train_check(mesh)
+    mark("train dp x tp")
     slice_msg = ""
     if n % 2 == 0 and n >= 4:
         gmesh = distributed.make_global_mesh(model=1, n_slices=2)
-        s_loss, s_grads = _dp_train_check(gmesh)
+        s_loss, s_grads = _train_check(gmesh)
         slice_msg = (f"; slice mesh (slice=2, data={n // 2}) loss={s_loss:.4f} "
                      f"grads {s_grads:.1e}")
     mark("train multi-slice")
     phys_msg = _dryrun_physics(mesh)
     mark("physics dp")
-    longseq_msg = _dryrun_longseq(mesh)
+    longseq_msg = _dryrun_longseq(mesh_lib.make_mesh())
     mark("longseq probe")
     return (f"dryrun_multichip OK: {n} ranks on {mesh.device.type} "
             f"({dist.get_backend()}; data={mesh.shape['data']}, model={mesh.shape['model']}), "
-            f"loss={loss:.4f} grads {d_grads:.1e}{slice_msg}; {phys_msg}; "
+            f"train dp x tp loss={loss:.4f} grads {d_grads:.1e}{slice_msg}; {phys_msg}; "
             f"{longseq_msg}")
 
 
-def _dp_train_check(mesh: mesh_lib.Mesh):
-    """One data-parallel training step over ``mesh`` against the step on the
-    global batch in this process alone: the loss, the summed gradients
-    (relative to the largest) and the BN running statistics. Returns (loss,
-    gradients' relative max |d|). (Parameters are not compared: Adam's
-    first step moves each by ±lr whatever its gradient's size, so a
-    gradient near 0 flips on a rounding.)"""
+def _train_check(mesh: mesh_lib.Mesh):
+    """One training step over ``mesh``, the model sharded by
+    ``contact_model_shardings`` (whole at "model" 1), against the unsharded
+    step on the global batch in this process alone: the loss, the summed
+    gradients (relative to the largest) and the BN running statistics,
+    gathered. Returns (loss, gradients' relative max |d|). (Parameters are
+    not compared: Adam's first step moves each by ±lr whatever its
+    gradient's size, so a gradient near 0 flips on a rounding.)"""
     from ..contact import train as train_lib
     from ..models import contact_mlp
+    from . import tensor
 
     cfg = train_lib.TrainConfig(batch_size=8)
     B, F = mesh.n_batch * max(1, 8 // mesh.n_batch), 32
@@ -182,9 +188,13 @@ def _dp_train_check(mesh: mesh_lib.Mesh):
     def step(m):
         model = contact_mlp.init(cfg.model_config(), torch.Generator().manual_seed(0))
         model = model.to(mesh.device)
+        if m is not None:
+            model = tensor.shard_contact_model(model, m)
         opt = train_lib.make_optimizer(model, cfg)
         gen = torch.Generator(device=mesh.device).manual_seed(1)
         loss, _ = train_lib.train_step(model, opt, op, contacts, cfg, gen, mesh=m)
+        if m is not None:
+            model = tensor.gather_contact_model(model)
         return (float(loss), torch.cat([p.grad.reshape(-1) for p in model.parameters()]),
                 torch.cat([b.reshape(-1).float() for b in model.buffers()]))
 
@@ -193,16 +203,17 @@ def _dp_train_check(mesh: mesh_lib.Mesh):
     d_g = float((grads - plain_grads).abs().max() / plain_grads.abs().max())
     d_b = float((bufs - plain_bufs).abs().max())
     if not np.isfinite(loss) or abs(loss - plain_loss) > 1e-5 * max(1.0, abs(plain_loss)):
-        raise AssertionError(f"data-parallel loss {loss} against {plain_loss} on one process")
+        raise AssertionError(f"sharded loss {loss} against {plain_loss} on one process")
     if d_g > 1e-5 or d_b > 1e-5:
-        raise AssertionError(f"data-parallel step against one process's: gradients {d_g} "
+        raise AssertionError(f"sharded step against one process's: gradients {d_g} "
                              f"(relative), BN statistics {d_b}")
     return loss, d_g
 
 
 def _dryrun_physics(mesh: mesh_lib.Mesh) -> str:
-    """The sharded physics batch, B = one sequence a batch shard, run on its
-    inputs and on them rolled by one: the outputs must roll alike."""
+    """The sharded physics batch, B = one sequence a batch shard (the "model"
+    ranks of one share it), run on its inputs and on them rolled by one: the
+    outputs must roll alike."""
     from ..kinematics.lm import LMConfig
     from ..parallel import batch as batch_lib
     from ..physics import collocation

@@ -24,19 +24,26 @@ the whole batch, a sum is a local one, and ``parallel.longseq`` stacks the
 shards of a sequence on a leading axis. ``local_mesh`` builds it, and
 ``make_mesh`` does where no process group is initialized.
 
-``chd_tpu``'s ``contact_model_shardings`` and ``named`` (the contact MLP's
-tensor-parallel shardings over "model") are not ported: the model has ~0.95M
-parameters (ROADMAP §1).
+The "model" axis carries the contact MLP's tensor parallelism:
+``contact_model_shardings`` gives ``chd_tpu``'s placement of each of its
+tensors (a spec: a tuple of the mesh axis each tensor axis splits over, or
+None, as a ``PartitionSpec`` reads), ``named`` turns a tree of them into ``Placement``s
+(this process's index slices), and ``Mesh.gather_model`` and
+``Mesh.sum_model`` are the collectives over the "model" group that XLA
+inserts in ``chd_tpu``: a cat and a sum in the single-process form, which
+holds every "model" shard. ``parallel.tensor`` builds the sharded model on
+them.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.contact_mlp import HIDDEN
 from ..utils.device import resolve_device
 
 BATCH_EXCLUDED = ("model",)
@@ -83,8 +90,10 @@ class Mesh:
         self.batch_dims = tuple(d for d in self.dim_names if d not in BATCH_EXCLUDED)
         self.n_batch = math.prod(self.shape[d] for d in self.batch_dims)
         self._batch_group = None
+        self._model_group = None
         if self.distributed:
             self._batch_group = _batch_group(self)
+            self._model_group = device_mesh.get_group("model")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -151,6 +160,43 @@ class Mesh:
         the single-process form)."""
         return self._batch_group
 
+    @property
+    def n_model(self) -> int:
+        """The shards of the "model" axis."""
+        return self.shape["model"]
+
+    def model_shards(self) -> Tuple[int, ...]:
+        """The "model" shards this process holds: its rank in the "model"
+        group through it (the order of that group's gathers), or every one in
+        the single-process form."""
+        if not self.distributed:
+            return tuple(range(self.n_model))
+        return (dist.get_rank(self._model_group),)
+
+    def gather_model(self, parts: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
+        """This process's "model" shards of a tensor (``model_shards``' order)
+        joined along ``dim`` into the whole, the same on every rank: an
+        all-gather over the "model" group, or a cat in the single-process
+        form. Differentiable: the backward sums the gradient over the group
+        and keeps this rank's part (a reduce-scatter), since each rank's
+        gradient of the whole holds only what flows through its own shards."""
+        if not self.distributed:
+            return torch.cat(list(parts), dim)
+        (part,) = parts
+        return _GatherModel.apply(part, dim, self._model_group)
+
+    def sum_model(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of partial tensors over the "model" shards, the same on
+        every rank: an all-reduce over the "model" group, or a local sum in
+        the single-process form. Differentiable, with the identity as its
+        backward: every "model" rank computes the same loss from the sum, so
+        a partial's gradient is the sum's (``differentiable_sum``'s
+        all-reduce would count it once a rank)."""
+        if not self.distributed:
+            return torch.stack(list(parts)).sum(0)
+        (part,) = parts
+        return _SumModel.apply(part, self._model_group)
+
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the batch shards' processes (a new tensor)."""
         t = t.clone()
@@ -179,6 +225,36 @@ class _AllSum(torch.autograd.Function):
     def backward(ctx, grad):
         grad = grad.clone()
         dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, dim, group):
+        part = part.contiguous()
+        ctx.dim, ctx.size, ctx.group = dim, part.shape[dim], group
+        parts = [torch.empty_like(part) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, part, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # gloo has no reduce-scatter: all-reduce the whole, keep this part
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        start = dist.get_rank(ctx.group) * ctx.size
+        return grad.narrow(ctx.dim, start, ctx.size), None, None
+
+
+class _SumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, group):
+        out = part.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
         return grad, None
 
 
@@ -235,6 +311,66 @@ def from_grid(grid: np.ndarray, dim_names: Sequence[str]) -> Mesh:
     device = group_device()
     dm = DeviceMesh(device.type, torch.as_tensor(grid), mesh_dim_names=tuple(dim_names))
     return Mesh(grid, dim_names, device, dm)
+
+
+# -- the contact MLP's tensor-parallel placement -------------------------------
+
+def contact_model_shardings(mesh: Mesh) -> Tuple[Dict, Dict]:
+    """Tensor-parallel specs of the contact MLP's (params, state) trees
+    (``chd_tpu``'s keys), the same on every mesh, as ``chd_tpu``'s are:
+    linear0-3 split on their output features (``w``'s rows, ``b``) over
+    "model", with their BN vectors; linear4 on its input features (``w``'s
+    columns), its bias whole. Weights are (out, in), ``nn.Linear``'s and
+    ``chd_tpu``'s layout."""
+    specs_params: Dict = {}
+    specs_state: Dict = {}
+    n_hidden = len(HIDDEN)
+    for i in range(n_hidden + 1):
+        if i < n_hidden:
+            specs_params[f"linear{i}"] = {"w": ("model", None), "b": ("model",)}
+            specs_params[f"bn{i}"] = {"scale": ("model",), "bias": ("model",)}
+            specs_state[f"bn{i}"] = {"mean": ("model",), "var": ("model",)}
+        else:
+            specs_params[f"linear{i}"] = {"w": (None, "model"), "b": ()}
+    return specs_params, specs_state
+
+
+class Placement(NamedTuple):
+    """Where a tensor lies on ``mesh``: split in ``mesh.n_model`` equal parts
+    along ``axis`` over "model", or whole on every rank (``axis`` None)."""
+    mesh: Mesh
+    axis: Optional[int]
+
+    def take(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """This process's parts of the whole tensor ``t``, one a "model" shard
+        it holds (views), or ``[t]`` where it is whole."""
+        if self.axis is None:
+            return [t]
+        m = self.mesh.n_model
+        if t.shape[self.axis] % m:
+            raise ValueError(f"axis {self.axis} of a {tuple(t.shape)} tensor does not split "
+                             f"into {m} model shards")
+        size = t.shape[self.axis] // m
+        return [t.narrow(self.axis, k * size, size) for k in self.mesh.model_shards()]
+
+    def join(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The whole tensor (a new one), on every rank, from this process's
+        ``take``."""
+        if self.axis is None:
+            return parts[0].clone()
+        return self.mesh.gather_model(parts, self.axis)
+
+
+def named(mesh: Mesh, spec_tree):
+    """A tree of specs (nested dicts of tuples) mapped to ``Placement``s on
+    ``mesh``: what ``chd_tpu``'s ``named`` maps to ``NamedSharding``s. A
+    spec may split one axis, over "model"."""
+    if isinstance(spec_tree, dict):
+        return {k: named(mesh, v) for k, v in spec_tree.items()}
+    split = [i for i, name in enumerate(spec_tree) if name is not None]
+    if len(split) > 1 or any(spec_tree[i] != "model" for i in split):
+        raise ValueError(f"a spec may split one axis over 'model', not {spec_tree}")
+    return Placement(mesh, split[0] if split else None)
 
 
 # -- pytrees: tensors in tuples, lists, dicts and NamedTuples -----------------

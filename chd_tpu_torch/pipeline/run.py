@@ -57,6 +57,10 @@ from ..utils.log import get_logger, stage_timer
 
 log = get_logger("pipeline")
 
+# the combined-skeleton template's path in the reference repo's layout (the
+# pipeline reads the configured kinematic.skel_path)
+DEFAULT_SKEL = "src/skeleton_fitting/combined_body_25.bvh"
+
 
 def _skel_path(cfg: PipelineConfig) -> str:
     if cfg.kinematic.skel_path:

@@ -1,0 +1,1 @@
+from .mixamo import retarget, softmax, softmin

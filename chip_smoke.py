@@ -209,8 +209,18 @@ The parallel layer (``chd_tpu_torch.parallel``):
     (one kernel launch a rank, contacts and probabilities bitwise the
     unsharded call's, ms a call beside it), 3 sync-BN training steps at
     batch 64, ``lower``, within [9]'s bounds of the same steps without a
-    mesh, data-parallel ``eval_step`` (one launch, equal loss and counts),
-    and the physics and kinematic batches with the mesh, bitwise equal to
+    mesh, data-parallel ``eval_step`` (one launch, equal loss and counts);
+    the contact MLP's tensor parallelism in the single-process form of a
+    mesh with "model" 2 (both shards on the card): its
+    ``contact_model_shardings``, the model sharded and gathered back and its
+    folded shards against the gathered fold (bitwise), 3 training steps of
+    the sharded model on ``local_mesh(2, model=2)`` and on
+    ``local_mesh(4, data=2, model=2)`` within [9]'s bounds of the unsharded
+    steps in float64 (in float32, printed beside them, a BN output that
+    rounds to the other side of its ReLU moves that element's gradient
+    whole), its ``eval_step`` (one kernel launch on the gathered folded
+    layers, equal to the gathered model's) and a step's ms sharded against
+    unsharded; the physics and kinematic batches with the mesh, bitwise equal to
     the calls without it; ``dryrun_multichip(1, "cuda")`` in a spawned
     rank, and ``dryrun_multichip(min(count, 4), "cuda")`` where the machine
     has two cards or more (else a line says it did not run); then the
@@ -2624,7 +2634,7 @@ def parallel_phase(torch, dev, smi: str) -> dict:
     from chd_tpu_torch.models import contact_mlp, torch_convert
     from chd_tpu_torch.ops.fused_mlp import fused_mlp
     from chd_tpu_torch.parallel import batch as phys_batch
-    from chd_tpu_torch.parallel import distributed, longseq
+    from chd_tpu_torch.parallel import distributed, longseq, tensor
     from chd_tpu_torch.parallel import mesh as mesh_lib
     from chd_tpu_torch.parallel.dryrun import dryrun_multichip
     from chd_tpu_torch.physics import collocation
@@ -2683,39 +2693,55 @@ def parallel_phase(torch, dev, smi: str) -> dict:
             steps.append((feats, labels, contact_mlp.dropout_keep_mask(
                 (cfg.batch_size, contact_mlp.HIDDEN[2]), gen, dev)))
 
-        def run_steps(m_mesh):
-            m = contact_mlp.init(cfg.model_config(), torch.Generator().manual_seed(3)).to(dev)
+        def fresh(m_mesh=None, dtype=torch.float32):
+            """[9]'s initial model, sharded over m_mesh's "model" axis if given."""
+            m = contact_mlp.init(cfg.model_config(), torch.Generator().manual_seed(3))
+            m = m.to(dev, dtype)
+            return m if m_mesh is None else tensor.shard_contact_model(m, m_mesh)
+
+        def run_steps(m, m_mesh, dtype=torch.float32):
             opt = train_lib.make_optimizer(m, cfg)
             g_min = {k: torch.full_like(p, float("inf")) for k, p in m.named_parameters()}
             for feats, labels, mask in steps:
                 before = {k: p.detach().clone() for k, p in m.named_parameters()}
-                train_lib.train_step(m, opt, None, None, cfg, None, windows=(feats, labels),
+                train_lib.train_step(m, opt, None, None, cfg, None,
+                                     windows=(feats.to(dtype), labels.to(dtype)),
                                      dropout_mask=mask, mesh=m_mesh)
                 for k, p in m.named_parameters():
                     g_min[k] = torch.minimum(g_min[k],
                                              (p.grad + cfg.weight_decay * before[k]).abs())
             return m, g_min
 
-        m_dp, _ = run_steps(mesh)
-        m_one, g_min = run_steps(None)
-        one = dict(m_one.named_parameters())
-        d_grad = max(float((p.grad - one[k].grad).abs().max())
-                     for k, p in m_dp.named_parameters())
-        firm = {k: g >= G_MIN for k, g in g_min.items()}
-        d = {k: (p - one[k]).detach().abs() for k, p in m_dp.named_parameters()}
-        d_param = max(float(d[k][firm[k]].max()) if firm[k].any() else 0.0 for k in d)
-        d_noise = max(float(d[k][~firm[k]].max()) if (~firm[k]).any() else 0.0 for k in d)
-        bufs = dict(m_one.named_buffers())
-        d_bn = max(float((b.float() - bufs[k].float()).abs().max())
-                   for k, b in m_dp.named_buffers())
-        print(f"    3 sync-BN steps over the mesh, batch {cfg.batch_size} of {TRAIN_F}-frame "
-              f"sequences, lower: against the same steps without a mesh, max|d| grads "
-              f"{d_grad:.3e} (<= {GRAD_MAX_D}), params {d_param:.3e} where |grad + L2| >= "
-              f"{G_MIN} (<= {PARAM_MAX_D}), {d_noise:.3e} on the others (<= "
-              f"{6 * cfg.lr:.1e}), BN stats {d_bn:.3e} (<= {BN_MAX_D})")
-        if (d_grad > GRAD_MAX_D or d_param > PARAM_MAX_D or d_noise > 6 * cfg.lr
-                or d_bn > BN_MAX_D):
-            fail("[25] the sync-BN steps leave [9]'s bounds")
+        def unsharded(dtype):
+            """The unsharded steps' parameters, firm masks and buffers."""
+            m_one, g_min = run_steps(fresh(dtype=dtype), None, dtype)
+            return (dict(m_one.named_parameters()), {k: g >= G_MIN for k, g in g_min.items()},
+                    dict(m_one.named_buffers()))
+
+        def held_to_phase9(m, what, ref, gate=True):
+            """m's last gradients, parameters and BN statistics against the
+            unsharded steps' (``ref``) within [9]'s bounds; fails the run if
+            not, where ``gate``."""
+            one, firm, bufs = ref
+            d_grad = max(float((p.grad - one[k].grad).abs().max())
+                         for k, p in m.named_parameters())
+            d = {k: (p - one[k]).detach().abs() for k, p in m.named_parameters()}
+            d_param = max(float(d[k][firm[k]].max()) if firm[k].any() else 0.0 for k in d)
+            d_noise = max(float(d[k][~firm[k]].max()) if (~firm[k]).any() else 0.0 for k in d)
+            d_bn = max(float((b.double() - bufs[k].double()).abs().max())
+                       for k, b in m.named_buffers())
+            print(f"    3 {what}, batch {cfg.batch_size} of {TRAIN_F}-frame sequences, lower: "
+                  f"against the same steps without a mesh, max|d| grads {d_grad:.3e} (<= "
+                  f"{GRAD_MAX_D}), params {d_param:.3e} where |grad + L2| >= {G_MIN} (<= "
+                  f"{PARAM_MAX_D}), {d_noise:.3e} on the others (<= {6 * cfg.lr:.1e}), BN "
+                  f"stats {d_bn:.3e} (<= {BN_MAX_D})" + ("" if gate else ": not a gate"))
+            if gate and (d_grad > GRAD_MAX_D or d_param > PARAM_MAX_D or d_noise > 6 * cfg.lr
+                         or d_bn > BN_MAX_D):
+                fail(f"[25] the {what} leave [9]'s bounds")
+
+        one32 = unsharded(torch.float32)
+        m_dp, _ = run_steps(fresh(), mesh)
+        held_to_phase9(m_dp, "sync-BN steps over the mesh", one32)
         val_op, val_ct = ds.split_arrays("val")
         fused_mlp.launches = 0
         loss_dp, conf_dp = train_lib.eval_step(m_dp, val_op, val_ct, cfg, mesh=mesh)
@@ -2728,6 +2754,71 @@ def parallel_phase(torch, dev, smi: str) -> dict:
               f"counts equal {torch.equal(conf_dp, conf_one)}")
         if launches["dp_eval"] != 1 or d_loss > 1e-6 or not torch.equal(conf_dp, conf_one):
             fail("[25] data-parallel evaluation differs from the unsharded one")
+
+        # tensor parallelism of the contact MLP: the single-process form of
+        # the mesh holds both "model" shards on this card
+        tp_mesh = mesh_lib.local_mesh(2, model=2, device=dev)
+        p_specs, s_specs = mesh_lib.contact_model_shardings(tp_mesh)
+        print("    contact_model_shardings over model=2: "
+              + ", ".join(f"{mod}.{leaf} {spec}" for tree in (p_specs, s_specs)
+                          for mod, leaves in tree.items() for leaf, spec in leaves.items()
+                          if mod.endswith(("0", "4"))) + " (linear1-3 and bn1-3 as 0)")
+        whole = fresh()
+        tp0 = tensor.shard_contact_model(whole, tp_mesh)
+        back = tensor.gather_contact_model(tp0)
+        same_back = all(torch.equal(a, b) for a, b in zip(back.state_dict().values(),
+                                                          whole.state_dict().values()))
+        f_tp, f_back = tensor.fold_batchnorm(tp0), contact_mlp.fold_batchnorm(back)
+        same_fold = all(torch.equal(a, b) for k in "wb" for a, b in zip(f_tp[k], f_back[k]))
+        print(f"    sharded and gathered back: bitwise {same_back}; folded shards against the "
+              f"gathered model's fold: bitwise {same_fold}")
+        if not (same_back and same_fold):
+            fail("[25] sharding the contact MLP and gathering it back is not bitwise")
+        # The gate runs in float64. In float32 the sharded products (other
+        # GEMM shapes, so other sum orders) can round a BN output near 0 to
+        # the other side of its ReLU, and that element's gradient is then
+        # all or nothing (PERF.md, PR 9); float32 is printed beside it.
+        tp_forms = {"model=2": tp_mesh,
+                    "data=2 x model=2": mesh_lib.local_mesh(4, data=2, model=2, device=dev)}
+        one64 = unsharded(torch.float64)
+        for what, t_mesh in tp_forms.items():
+            m64, _ = run_steps(fresh(t_mesh, torch.float64), t_mesh, torch.float64)
+            held_to_phase9(tensor.gather_contact_model(m64),
+                           f"float64 tensor-parallel steps ({what}, one process)", one64)
+            m_tp, _ = run_steps(fresh(t_mesh), t_mesh)
+            held_to_phase9(tensor.gather_contact_model(m_tp),
+                           f"float32 tensor-parallel steps ({what})", one32, gate=False)
+        fused_mlp.launches = 0
+        loss_tp, conf_tp = train_lib.eval_step(m_tp, val_op, val_ct, cfg, mesh=t_mesh)
+        torch.cuda.synchronize()
+        launches["tp_evaluate"] = fused_mlp.launches
+        loss_g, conf_g = train_lib.eval_step(tensor.gather_contact_model(m_tp), val_op, val_ct,
+                                             cfg)
+        d_loss = abs(float(loss_tp) - float(loss_g))
+        print(f"    tensor-parallel eval_step ({what}) on {val_op.shape[0]} held-out sequences: "
+              f"fused_mlp launches {launches['tp_evaluate']}, against the gathered model's "
+              f"eval_step: loss |d| {d_loss:.3e} (<= 1e-6), confusion counts equal "
+              f"{torch.equal(conf_tp, conf_g)}")
+        if launches["tp_evaluate"] != 1 or d_loss > 1e-6 or not torch.equal(conf_tp, conf_g):
+            fail("[25] tensor-parallel evaluation differs from the gathered model's")
+
+        def step_ms(m_mesh):
+            """ms of one train_step (median of 3 synced, after a warm-up)."""
+            m = fresh(m_mesh)
+            opt = train_lib.make_optimizer(m, cfg)
+            feats, labels, mask = steps[0]
+
+            def step():
+                return train_lib.train_step(m, opt, None, None, cfg, None,
+                                            windows=(feats, labels), dropout_mask=mask,
+                                            mesh=m_mesh)
+
+            wall(step)
+            return statistics.median(wall(step)[0] for _ in range(3)) * 1e3
+
+        ms = {"unsharded": step_ms(None), **{what: step_ms(t) for what, t in tp_forms.items()}}
+        print(f"    train_step ms at batch {cfg.batch_size}, lower, {smi} (median of 3 synced): "
+              + ", ".join(f"{what} {t:.3f}" for what, t in ms.items()))
 
         # the physics and kinematic batches with the mesh, against without
         phys_cfg = collocation.SolveConfig(1, 1, 1, 1, lm=LMConfig(3, 10, 1e-2))

@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
                  "pipeline.probe", "utils.log", "pipeline.external", "pipeline.structure",
                  "utils.profiling", "viz.video", "viz.skeleton3d", "viz.keypoints2d",
                  "viz.physics_viz", "viz.plots", "viz.blender", "parallel.mesh",
-                 "parallel.distributed", "parallel.longseq", "parallel.dryrun"):
+                 "parallel.distributed", "parallel.longseq", "parallel.dryrun",
+                 "parallel.tensor"):
         assert f"chd_tpu_torch.{name}" in modules, name
     code = (f"import sys; import {', '.join(modules)}; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'optax', 'chd_tpu')))")

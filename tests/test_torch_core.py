@@ -55,6 +55,9 @@ def _golden_parents():
     "CONTACT_TO_DATA_JOINTS", "OP_ROOT_JOINT", "OP_JOINT_SUBSETS", "SMPL_FOR_COMBINED_SKEL",
     "COMBINED_SKEL_FOR_SMPL", "COMBINED_FOOT_INDS", "COMBINED_TOE_INDS", "COMBINED_ANKLE_INDS",
     "COMBINED_EYE_INDS", "MTC_WIDTH", "MTC_HEIGHT", "MTC_FOCAL", "MTC_PP",
+    "BODY_25_NUM_JOINTS", "BODY_25_PROJ_WEIGHTS", "BODY_25_SMOOTH_WEIGHTS", "COMBINED_ADJ_LIST",
+    "COMBINED_SKEL_NECK_JOINT", "CONTACT_LABEL_NAMES", "OP_LOWER_JOINTS",
+    "OP_LOWER_JOINT_NAMES", "OP_LOWER_PARENTS", "SMPL_ADJ_LIST", "SMPL_NUM_JOINTS",
 ])
 def test_defs_table_equals_chd_tpu(name):
     got, want = getattr(defs, name), getattr(jax_defs, name)

@@ -1,5 +1,7 @@
 """chd_tpu_torch.parallel.dryrun: the multi-rank dry run on 4 gloo ranks of
-the CPU (the counterpart of ``__graft_entry__.dryrun_multichip``), and the
+the CPU (the counterpart of ``__graft_entry__.dryrun_multichip``, which lays
+4 devices as data=2 x model=2 and so solves one physics sequence a "data"
+shard), and the
 rank launcher's guarantees: a rank's failure fails the run with its
 traceback, a rank that hangs is terminated at the deadline, and no process
 is left behind.
@@ -33,8 +35,9 @@ def test_dryrun_multichip_on_four_cpu_ranks(capsys):
     cpu0, t0 = _children_cpu_s(), time.monotonic()
     line = dryrun_multichip(4, "cpu", timeout=DRYRUN_WALL_S)
     cpu, wall = _children_cpu_s() - cpu0, time.monotonic() - t0
-    assert line.startswith("dryrun_multichip OK: 4 ranks on cpu (gloo; data=4, model=1)")
-    for part in ("slice mesh (slice=2, data=2)", "physics dp(B=4) OK perm-equivariant",
+    assert line.startswith("dryrun_multichip OK: 4 ranks on cpu (gloo; data=2, model=2)")
+    for part in ("train dp x tp", "slice mesh (slice=2, data=2)",
+                 "physics dp(B=2) OK perm-equivariant",
                  "longseq probe OK (4-way frame shard"):
         assert part in line, line
     assert line in capsys.readouterr().out

@@ -15,10 +15,10 @@ from chd_tpu_torch.parallel import mesh as mesh_lib
 FRAME_KEYS = ("x0", "pose3d", "root", "p2d", "pw", "dw", "vc")
 
 
-def _mesh(n: int) -> mesh_lib.Mesh:
+def _mesh(n: int, model: int = 1) -> mesh_lib.Mesh:
     """The process group's ("data", "model") mesh, or the single-process
     form of ``n`` shards on the CPU where no group is initialized."""
-    return mesh_lib.make_mesh(None if dist.is_initialized() else n, device="cpu")
+    return mesh_lib.make_mesh(None if dist.is_initialized() else n, model=model, device="cpu")
 
 
 def _data(p: dict) -> TrajectoryData:
@@ -160,6 +160,76 @@ def sync_bn_steps(steps: list, state_dict: dict, cfg, n_slices: int) -> dict:
                 grads={k: p.grad.numpy().copy() for k, p in model.named_parameters()},
                 params={k: p.detach().numpy().copy() for k, p in model.named_parameters()},
                 buffers={k: b.numpy().copy() for k, b in model.named_buffers()})
+
+
+def tensor_parallel_checks(n: int, models: dict, steps: list, cfg, val: tuple) -> dict:
+    """Over a ("data", "model") mesh of ``n`` with "model" 2: for each state
+    dict of ``models`` the model sharded and gathered back and its folded
+    layers against the gathered model's (bitwise), and this process's
+    shards; the adjoint identities of ``Mesh.gather_model`` and
+    ``Mesh.sum_model`` (float64); 3 tensor-parallel training steps of
+    ``models["lower"]`` on the given global windows and dropout masks
+    (gathered gradients, parameters, BN statistics, and linear4's bias,
+    its gradient and Adam moments on this rank); and ``eval_step`` of the
+    stepped sharded model on ``val`` against the unsharded one."""
+    from chd_tpu_torch.contact import train
+    from chd_tpu_torch.models import contact_mlp, torch_convert
+    from chd_tpu_torch.parallel import tensor
+
+    mesh = _mesh(n, model=2)
+    out = dict(shape=mesh.shape, model_shards=mesh.model_shards(), bitwise={}, shards={})
+    for name, sd in models.items():
+        whole = torch_convert.from_state_dict(sd)
+        tp = tensor.shard_contact_model(whole, mesh)
+        back = tensor.gather_contact_model(tp)
+        f_tp, f_back = tensor.fold_batchnorm(tp), contact_mlp.fold_batchnorm(back)
+        out["bitwise"][name] = dict(
+            gather=all(torch.equal(a, b) for a, b in zip(back.state_dict().values(),
+                                                        whole.state_dict().values())),
+            fold=all(torch.equal(a, b) for k in "wb" for a, b in zip(f_tp[k], f_back[k])))
+        params, state = tp.trees()
+        out["shards"][name] = {f"{mod}.{leaf}": [t.detach().numpy().copy() for t in parts]
+                               for tree in (params, state)
+                               for mod, leaves in tree.items() for leaf, parts in leaves.items()}
+
+    rng = np.random.default_rng(0)
+    m, mine = mesh.n_model, list(mesh.model_shards())
+    xs = torch.as_tensor(rng.normal(size=(m, 3, 4)))
+    ybars = torch.as_tensor(rng.normal(size=(m, 3, 4 * m)))
+    zbar = torch.as_tensor(rng.normal(size=(3, 5)))
+    x = xs[mine].clone().requires_grad_()
+    y = mesh.gather_model(list(x.unbind(0)))
+    ybar = ybars[mine].sum(0)  # each model rank's cotangent of the whole
+    y.backward(ybar)
+    gather_lhs = mesh.sum_model([(y.detach() * ybar).sum()])
+    gather_rhs = mesh.sum_model([(x.detach() * x.grad).sum()])
+    p = torch.as_tensor(rng.normal(size=(m, 3, 5)))[mine].clone().requires_grad_()
+    z = mesh.sum_model(list(p.unbind(0)))
+    z.backward(zbar)  # the same on every model rank, as the loss is
+    out["adjoint"] = dict(gather=(float(gather_lhs), float(gather_rhs)),
+                          sum=(float((z.detach() * zbar).sum()),
+                               float(mesh.sum_model([(p.detach() * p.grad).sum()]))))
+
+    tp = tensor.shard_contact_model(torch_convert.from_state_dict(models["lower"]), mesh)
+    opt = train.make_optimizer(tp, cfg)
+    losses = []
+    for feats, labels, mask in steps:
+        loss, _ = train.train_step(tp, opt, None, None, cfg, None,
+                                   windows=(torch.from_numpy(feats), torch.from_numpy(labels)),
+                                   dropout_mask=torch.from_numpy(mask), mesh=mesh)
+        losses.append(float(loss))
+    adam = opt.state[tp.bias4]
+    out["bias4"] = dict(grad=tp.bias4.grad.numpy().copy(), exp_avg=adam["exp_avg"].numpy().copy(),
+                        exp_avg_sq=adam["exp_avg_sq"].numpy().copy())
+    model = tensor.gather_contact_model(tp)
+    out.update(losses=losses,
+               grads={k: q.grad.numpy().copy() for k, q in model.named_parameters()},
+               params={k: q.detach().numpy().copy() for k, q in model.named_parameters()},
+               buffers={k: b.numpy().copy() for k, b in model.named_buffers()})
+    val_op, val_ct = (torch.from_numpy(a) for a in val)
+    out["eval"] = [tuple(t.numpy() for t in train.eval_step(tp, val_op, val_ct, cfg, mesh=mesh)),
+                   tuple(t.numpy() for t in train.eval_step(model.eval(), val_op, val_ct, cfg))]
+    return out
 
 
 def fail_on_rank_one() -> int:
