@@ -15,11 +15,11 @@ cores in one of chd_tpu's matmul precisions, a ``mode`` of ``MlpLayers``
 Layers 3-4 run in f32 (with bf16 roundings in ``"bf16"``).
 ``fused_mlp_split_plain`` (by pass count) and ``fused_mlp_bf16_plain`` are
 the same arithmetic in plain torch (``emulation(mode)``), and
-``single_pass_gate`` tells the single-pass modes apart by them. A block
-keeps 64 rows' activations in shared memory (a first layer wider than 432,
-the ``full`` joint set, a 128-input slab at a time) and streams the split
-weights from L2 through a ring of asynchronous copies in the layout of
-``pack_weights``, which ``MlpLayers`` builds once (see the source).
+``single_pass_gate`` tells the single-pass modes apart by them. The kernel
+runs ``wgmma`` on 64-row tiles in persistent clusters of blocks that share
+each stage of the split weights by a multicast bulk copy; the weights are a
+stream of stages in the layout of ``pack_weights``, which ``MlpLayers``
+builds once (``stream_index`` is its address function; see the source).
 
 The kernel reads its first-layer rows through strides: row (g, n) of the
 batch is ``x[g, n * row_stride : n * row_stride + width]`` of a contiguous
@@ -48,8 +48,10 @@ from ..utils import build
 
 N_LAYERS = 5
 SPLIT_LAYERS = 3  # layers 0-2 run in bf16 passes, 3-4 in f32
-CHUNK = 64        # h1 columns per chunk of the fused layers 0 and 1
-D0_MAX = 768      # six layer-0 tiles; the widest joint set, ``full``, is 675
+CHUNK = 128       # h1 columns per chunk of the fused layers 0 and 1
+K0 = 64           # layer-0 inputs per stage of the weight stream
+STAGE = 8192      # bf16 values of one part of a stage
+D0_MAX = 768      # the widest joint set, ``full``, is 675
 D5_MAX = 32
 
 # The kernel's modes, in the order of its ``mode`` argument; the bf16 parts
@@ -187,42 +189,73 @@ def single_pass_gate(got: torch.Tensor, layers: Layers, x: torch.Tensor, width: 
             "controls_fail": all(mean[n] > limit[n] for n in MODES if n != mode)}
 
 
-def _split_tiles(w: torch.Tensor, n_tile: int, k_tile: int, parts: int) -> torch.Tensor:
-    """(K, N) float32 -> (N / n_tile, ceil(K / k_tile), parts, n_tile,
-    k_tile / 8, 8) bf16: tiles of w.T split into parts, (out, in) rows in
-    16-byte chunks, inputs past K zero."""
-    K, N = w.shape
-    wt = torch.zeros((N, -(-K // k_tile) * k_tile), dtype=w.dtype, device=w.device)
-    wt[:, :K] = w.T
-    ps = torch.stack(split_bf16(wt, parts))  # (parts, N, Kp)
-    return ps.reshape(parts, N // n_tile, n_tile, -1, k_tile // 8, 8).permute(1, 3, 0, 2, 4, 5)
+def _core_matrices(t: torch.Tensor) -> torch.Tensor:
+    """(..., R, K) -> (..., R * K): each k16 slab of the (R, K) matrices
+    after the last, in wgmma's no-swizzle K-major layout: 8-row groups, in
+    each the two 8-wide k halves, in each 8 rows of 8 values."""
+    *lead, rows, cols = t.shape
+    n = len(lead)
+    t = t.reshape(*lead, rows // 8, 8, cols // 16, 2, 8)
+    return t.permute(*range(n), n + 2, n, n + 3, n + 1, n + 4).reshape(*lead, -1)
 
 
-def _swizzle(t: torch.Tensor, row_bits) -> torch.Tensor:
-    """Chunk c of row r of each tile moved to chunk c ^ row_bits(r), the
-    kernel's conflict-free shared-memory layout."""
-    r = torch.arange(t.shape[-3], device=t.device)[:, None]
-    c = torch.arange(t.shape[-2], device=t.device)[None, :]
-    return t[..., r, c ^ row_bits(r), :]
+def stream_index(d0: int) -> torch.Tensor:
+    """The kernel's weight stream as positions: (stages, STAGE) indices into
+    ``cat(W0.T (1024, K0p), W1.T (512, 1024), W2.T (128, 512))`` flattened,
+    K0p = d0 rounded up to K0 (W0's inputs past d0 are zeros), in the order a
+    tile consumes the stages: for each CHUNK of h1 columns, layer 0's (CHUNK
+    outputs, K0 inputs) stages, inputs ascending, then layer 1's (512
+    outputs, 16 inputs) stages of the chunk's inputs; then layer 2's 8
+    stages, for each half of its 128 outputs four of (the first consumer
+    warpgroup's 64 inputs, the second's), each warpgroup's 256 inputs
+    ascending. Each element of the three matrices appears exactly once."""
+    h1, h2, h3 = HIDDEN[:SPLIT_LAYERS]
+    k0p = -(-d0 // K0) * K0
+    i0 = torch.arange(h1 * k0p).reshape(h1, k0p)
+    i1 = i0.numel() + torch.arange(h2 * h1).reshape(h2, h1)
+    i2 = i0.numel() + i1.numel() + torch.arange(h3 * h2).reshape(h3, h2)
+    n_chunks = h1 // CHUNK
+    t0 = _core_matrices(i0.reshape(n_chunks, CHUNK, k0p // K0, K0).transpose(1, 2))
+    t1 = _core_matrices(i1.reshape(h2, n_chunks, CHUNK // 16, 16).permute(1, 2, 0, 3))
+    t2 = _core_matrices(i2.reshape(2, h3 // 2, 2, 4, h2 // 8).permute(0, 3, 2, 1, 4))
+    chunks = torch.cat([t0, t1], dim=1).reshape(-1, STAGE)
+    return torch.cat([chunks, t2.reshape(-1, STAGE)])
+
+
+def _tail_blocks(layers: Layers) -> torch.Tensor:
+    """Layers 3 and 4 in float32 as the stream's last two STAGE-sized
+    blocks, each viewed as bf16: w3 (in, out); then w4, b3 and b4, each
+    padded with zeros to D5_MAX outputs."""
+    (w3, b3), (w4, b4) = layers[SPLIT_LAYERS:]
+    rest = torch.zeros(STAGE // 2, dtype=torch.float32, device=w3.device)
+    w4p = torch.zeros((w4.shape[0], D5_MAX), dtype=torch.float32, device=w4.device)
+    w4p[:, :w4.shape[1]] = w4
+    n = w4p.numel()
+    rest[:n] = w4p.flatten()
+    rest[n:n + b3.numel()] = b3
+    rest[n + D5_MAX:n + D5_MAX + b4.numel()] = b4
+    return torch.stack([w3.contiguous().flatten(), rest]).view(torch.bfloat16)
 
 
 def pack_weights(layers: Layers, parts: int = 2) -> torch.Tensor:
-    """Layers 0-2 as the kernel's stream of (parts, 8192) bf16 tiles (the
-    split parts, largest first), in the order a block consumes them and in
-    its shared-memory layout: for each chunk of CHUNK h1 columns, layer 0's
-    (64 outputs, 128 inputs) tiles of those outputs, inputs ascending, then
-    layer 1's (512 outputs, 16 inputs) tiles of those inputs, ascending; then
-    layer 2's (64, 128) tiles, inputs outer. Rows are (out, in), their
-    16-byte chunks XOR-swizzled by row."""
+    """The kernel's stream of (parts, STAGE) bf16 stages: layers 0-2 in their
+    split parts (largest first), laid out by ``stream_index``, in the order a
+    tile consumes them and in their shared-memory layout; then
+    ``_tail_blocks``, in one stage (parts 0 and 1, zeros after) or, at one
+    part, in two."""
     (w0, _), (w1, _), (w2, _) = layers[:SPLIT_LAYERS]
-    t0 = _swizzle(_split_tiles(w0, 64, 128, parts), lambda r: r & 7)
-    t1 = _swizzle(_split_tiles(w1, w1.shape[1], 16, parts), lambda r: (r >> 2) & 1)
-    t2 = _swizzle(_split_tiles(w2, 64, 128, parts), lambda r: r & 7)
-    n_chunks = w0.shape[1] // CHUNK
-    chunks = torch.cat([t0.reshape(n_chunks, -1, parts, 8192),
-                        t1.reshape(n_chunks, -1, parts, 8192)], dim=1)
-    return torch.cat([chunks.reshape(-1, parts, 8192),
-                      t2.transpose(0, 1).reshape(-1, parts, 8192)]).contiguous()
+    d0 = w0.shape[0]
+    w0t = torch.zeros((w0.shape[1], -(-d0 // K0) * K0), dtype=w0.dtype, device=w0.device)
+    w0t[:, :d0] = w0.T
+    src = torch.cat([w0t.flatten(), w1.T.flatten(), w2.T.flatten()])
+    idx = stream_index(d0).to(src.device)
+    split = torch.stack([part[idx] for part in split_bf16(src, parts)], dim=1)
+    tail = _tail_blocks(layers)
+    if parts == 1:
+        tail = tail[:, None]
+    else:
+        tail = torch.cat([tail, tail.new_zeros((parts - 2, STAGE))])[None]
+    return torch.cat([split, tail]).contiguous()
 
 
 class MlpLayers(list):
@@ -294,7 +327,7 @@ def fused_mlp(layers: Layers, x: torch.Tensor, width: int,
     k = build.kernels()
     mode_id = MODES.index(mode)
     pack = layers.packed()
-    want = (k.lib.chd_fused_mlp_tiles(width), k.lib.chd_fused_mlp_parts(mode_id))
+    want = (k.lib.chd_fused_mlp_tiles(width, mode_id), k.lib.chd_fused_mlp_parts(mode_id))
     if tuple(pack.shape[:2]) != want:
         raise RuntimeError(f"packed weights of {tuple(pack.shape[:2])} (tiles, parts), the "
                            f"kernel reads {want} in mode {mode!r}")
@@ -303,13 +336,12 @@ def fused_mlp(layers: Layers, x: torch.Tensor, width: int,
     out = torch.empty((rows, dims[-1]), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out
-    (_, b0), (_, b1), (_, b2), (w3, b3), (w4, b4) = layers
+    (_, b0), (_, b1), (_, b2) = layers[:SPLIT_LAYERS]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = k.lib.chd_fused_mlp_forward(
             x.data_ptr(), rows, n, x.shape[1], row_stride, width, pack.data_ptr(),
-            *(t.data_ptr() for t in (b0, b1, b2, w3, b3, w4, b4)), dims[-1], mode_id,
-            out.data_ptr(), stream)
+            *(t.data_ptr() for t in (b0, b1, b2)), dims[-1], mode_id, out.data_ptr(), stream)
     build.check(k.lib, err, "fused_mlp launch")
     fused_mlp.launches += 1
     fused_mlp.mode_launches[mode] += 1

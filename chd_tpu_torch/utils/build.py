@@ -54,14 +54,13 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.chd_fused_mlp_forward.argtypes = [p, ll, ll, ll, ll, i] + [p] * 8 + [i, i, p, p]
+    lib.chd_fused_mlp_forward.argtypes = [p, ll, ll, ll, ll, i] + [p] * 4 + [i, i, p, p]
     lib.chd_fused_mlp_forward.restype = i
-    lib.chd_fused_mlp_smem_bytes.argtypes = [i]
-    lib.chd_fused_mlp_smem_bytes.restype = i
-    lib.chd_fused_mlp_tiles.argtypes = [i]
-    lib.chd_fused_mlp_tiles.restype = i
-    lib.chd_fused_mlp_parts.argtypes = [i]
-    lib.chd_fused_mlp_parts.restype = i
+    for name, args in (("smem_bytes", [i, i]), ("tiles", [i, i]), ("parts", [i]),
+                       ("cluster_size", []), ("ring_stages", [i, i]), ("clusters", [i, i])):
+        fn = getattr(lib, f"chd_fused_mlp_{name}")
+        fn.argtypes = args
+        fn.restype = i
     lib.chd_cuda_error_string.argtypes = [i]
     lib.chd_cuda_error_string.restype = ctypes.c_char_p
 

@@ -7,9 +7,16 @@ then, on the card:
 
 1. prints the card (``nvidia-smi``), the torch and CUDA versions, and pins
    float32 matmuls and convolutions to full precision (no TF32);
-2. builds the kernel and prints the build seconds, ptxas' registers and
-   spills, and the count of tensor-core ``HMMA`` instructions in the built
-   library (``cuobjdump -sass``), and fails if there is none;
+2. builds the kernel and prints the build seconds, ptxas' registers,
+   spills and wgmma notes, and, for each of the kernel's 8 instantiations
+   (resident or slab first-layer rows x 4 modes), its count of ``HGMMA``
+   (wgmma), ``HMMA`` (mma.sync) and bulk-copy (``UBLKCP``, ``UTMALDG``)
+   instructions and the highest register it uses (``cuobjdump -sass``); it
+   fails if the "high" instantiations have no ``HGMMA`` or no bulk copy.
+   Then the first launch of every instantiation, at a ragged 300 rows (5
+   tiles: a cluster with a block that has no rows), runs in a child process
+   with a time limit of ``FIRST_LAUNCH_S``, so that a barrier deadlock fails
+   here, named, instead of hanging the call;
 3. holds the fused-MLP kernel against its plain PyTorch version, dense rows
    at B in {1, 7, 31, 32, 33, 63, 64, 65, 256, 300} (the edges of the old
    32-row and the new 64-row tile) and strided (conv-mode) rows for the
@@ -30,7 +37,9 @@ then, on the card:
    max |d| <= 1e-4, and frames/s of each (median of 3 synced runs); then the
    kernel alone at that batch's conv-mode rows, against its plain version
    (phase 3's tolerance), timed with CUDA events, and its TFLOP/s on the
-   multiply-adds of the five layers;
+   multiply-adds of the five layers, its bound and share, and its weight
+   stream: the bytes it reads from L2 (tile groups x stages x parts, once
+   per cluster) and the L2 rate that implies;
 6. profiles 3 calls of each of phase 5's four paths with ``torch.profiler``:
    wall and device-busy time per call, the device's idle share, and the
    largest device items;
@@ -42,7 +51,7 @@ then, on the card:
    tolerance), a float64 chain and bitwise batch invariance, with a seeded
    random model at V=16 x F=120; then ``full`` (first layer 675 wide,
    staged in slabs) at V=512 x F=240 in both modes, timed against plain
-   with CUDA events;
+   with CUDA events, with its bound and its weight stream;
 9. one training step, card against CPU: the same initial weights, windows,
    labels and dropout masks for 3 steps of ``train_step`` on both; max |d|
    of the last gradients (bound 1e-6: float32 sums in other orders), of
@@ -169,7 +178,10 @@ library:
     against its emulation's, TFLOP/s, share of its bound and
     ``detect_contacts`` launches; golden agreement >= 0.999 for "high" and
     "highest", binary agreement with "high" >= ``MODE_AGREE_MIN`` for the
-    single-pass modes. [2]'s ``HMMA`` count covers every mode;
+    single-pass modes; each mode's weight stream and L2 rate, and beside
+    "default" ``cublas_one_pass_ms``, one bf16 pass of layers 0-2 as three
+    ``torch.matmul`` calls on the same rows (a yardstick the port never
+    calls). [2]'s SASS counts cover every mode;
 23. the library surface no pipeline stage calls, card vs the port on the
     CPU in float32 at small sizes: ``one_euro_filter``, ``skin``,
     ``solve_basic_ik``, ``solve_jacobian_ik`` and ``solve_icp`` (without
@@ -347,6 +359,46 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def mlp_bound(args, passes: int) -> dict:
+    """The least time the card could take for the kernel on ``args``
+    (layers, x, width, row_stride), at the H100 SXM's peaks at 700 W:
+    layers 0-2 as ``passes`` bf16 tensor-core passes, layers 3-4 in float32
+    on CUDA cores, against the bytes (x, weights, logits, each moved once)."""
+    layers, x, width, row_stride = args
+    rows = x.shape[0] * ((x.shape[1] - width) // row_stride + 1)
+    dims = [width] + [w.shape[1] for w, _ in layers]
+    macs = [a * b for a, b in zip(dims, dims[1:])]
+    tc_flop, cc_flop = passes * 2 * rows * sum(macs[:3]), 2 * rows * sum(macs[3:])
+    n_bytes = (x.numel() + sum(w.numel() + b.numel() for w, b in layers) + rows * dims[-1]) * 4
+    ops_ms = (tc_flop / BF16_PEAK + cc_flop / F32_PEAK) * 1e3
+    return {"rows": rows, "dims": dims, "flop": 2 * rows * sum(macs), "tc_flop": tc_flop,
+            "cc_flop": cc_flop, "bytes": n_bytes,
+            "bound_ms": max(ops_ms, n_bytes / HBM_RATE * 1e3),
+            "bound_by": "operations" if ops_ms >= n_bytes / HBM_RATE * 1e3 else "bytes"}
+
+
+def weight_stream(lib, mode: str, rows: int, width: int) -> dict:
+    """The kernel's weight stream on ``rows`` rows of ``width`` in ``mode``:
+    the bytes it reads from L2 (each cluster reads each stage of each tile
+    group once and multicasts it to its blocks: groups x stages x parts x
+    16 KB), the bytes its blocks receive (x the cluster size), the tile
+    groups and the clusters on the card."""
+    from chd_tpu_torch.ops.fused_mlp import MODES
+
+    mode_id, size = MODES.index(mode), lib.chd_fused_mlp_cluster_size()
+    groups = -(-(-(-rows // 64)) // size)
+    n = groups * lib.chd_fused_mlp_tiles(width, mode_id) * lib.chd_fused_mlp_parts(mode_id) * 16384
+    return {"l2_bytes": n, "block_bytes": n * size, "groups": groups, "cluster_size": size,
+            "clusters": lib.chd_fused_mlp_clusters(width, mode_id)}
+
+
+def stream_line(ws: dict, ms: float) -> str:
+    return (f"weight stream {ws['l2_bytes'] / 1e9:.3f} GB from L2 ({ws['groups']} groups of "
+            f"{ws['cluster_size']} tiles on {ws['clusters']} clusters, "
+            f"{ws['block_bytes'] / 1e9:.3f} GB into blocks): {ws['l2_bytes'] / ms / 1e9:.2f} TB/s "
+            f"of L2 reads, {ws['block_bytes'] / ms / 1e9:.2f} TB/s into blocks")
+
+
 @contextlib.contextmanager
 def tf32_matmuls():
     """float32 matmuls in TF32 inside the block: stands in for a module's
@@ -400,6 +452,107 @@ def write_mixamo_tree(tmp: str, kp: np.ndarray, seed: int = 0) -> str:
     return root
 
 
+# [2]: the first launch of every instantiation, in a child process: a
+# ragged row count (5 tiles: the last cluster has a block with no rows) in
+# each mode, resident (351) and slab (675) first-layer rows
+FIRST_LAUNCH = r"""
+import sys, torch
+from chd_tpu_torch.models import contact_mlp
+from chd_tpu_torch.ops.fused_mlp import MODES, MlpLayers, fused_mlp
+gen = torch.Generator().manual_seed(0)
+for d0 in (351, 675):
+    dims = [d0, *contact_mlp.HIDDEN, 20]
+    ws = [(torch.randn(dims[i], dims[i + 1], generator=gen) * dims[i] ** -0.5,
+           torch.randn(dims[i + 1], generator=gen) * 0.1) for i in range(5)]
+    x = torch.randn(FIRST_LAUNCH_ROWS, d0, generator=gen).cuda()
+    for mode in MODES:
+        print(f"launch {mode} d0={d0}", flush=True)
+        out = fused_mlp(MlpLayers([(w.cuda(), b.cuda()) for w, b in ws], mode), x, d0, d0)
+        torch.cuda.synchronize()
+        if out.shape != (FIRST_LAUNCH_ROWS, 20) or not bool(torch.isfinite(out).all()):
+            sys.exit(f"{mode} d0={d0}: logits {tuple(out.shape)}, finite "
+                     f"{bool(torch.isfinite(out).all())}")
+print("first launches ok", flush=True)
+"""
+FIRST_LAUNCH_ROWS, FIRST_LAUNCH_S = 300, 60
+
+
+def sass_counts(sass: str) -> dict:
+    """{(slabs, mode): {"HGMMA": n, "HMMA": n, "UBLKCP": n, "UTMALDG": n,
+    "registers": highest register number + 1}} of each fused_mlp_kernel
+    instantiation in ``cuobjdump -sass`` output."""
+    import re
+
+    counts, key = {}, None
+    name = re.compile(r"Function : \S*fused_mlp_kernelILb([01])ELi(\d)E")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = name.search(line)
+            key = (m.group(1) == "1", int(m.group(2))) if m else None
+            if key is not None:
+                counts[key] = dict.fromkeys(("HGMMA", "HMMA", "UBLKCP", "UTMALDG",
+                                             "registers"), 0)
+        elif key is not None:
+            for op in ("HGMMA", "HMMA", "UBLKCP", "UTMALDG"):
+                counts[key][op] += bool(re.search(rf"\b{op}\b", line))
+            regs = [int(r) + 1 for r in re.findall(r"\bR(\d+)\b", line)]
+            gmma = re.search(r"HGMMA\.64x(\d+)x16\S* R(\d+)", line)
+            if gmma:  # the accumulators: N / 2 registers from the first
+                regs.append(int(gmma.group(2)) + int(gmma.group(1)) // 2)
+            counts[key]["registers"] = max([counts[key]["registers"], *regs])
+    return counts
+
+
+def build_phase(torch) -> None:
+    """Phase [2]: build, ptxas' report, the SASS of each instantiation, and
+    each instantiation's first launch in a child process."""
+    from chd_tpu_torch.ops.fused_mlp import MODES
+    from chd_tpu_torch.utils import build
+
+    t0 = time.perf_counter()
+    k = build.kernels()
+    print(f"[2] build: {k.path}: nvcc {k.build_seconds:.2f} s "
+          f"({time.perf_counter() - t0:.2f} s with loading; 0 nvcc s = an "
+          "earlier build was loaded)")
+    for line in k.log.splitlines():
+        if any(w in line for w in ("registers", "spill", "wgmma", "Compiling entry")):
+            print(f"    ptxas: {line.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", k.path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts = sass_counts(sass)
+    for (slab, mode), c in sorted(counts.items()):
+        print(f"    SASS fused_mlp_kernel<{'slabs' if slab else 'resident'}, "
+              f"{MODES[mode]}>: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    for d0 in (351, 675):
+        print(f"    d0={d0}: " + ", ".join(
+            f"{m} {k.lib.chd_fused_mlp_smem_bytes(d0, i)} B shared, "
+            f"{k.lib.chd_fused_mlp_ring_stages(d0, i)} ring stages"
+            for i, m in enumerate(MODES)) + f"; cluster of {k.lib.chd_fused_mlp_cluster_size()}")
+    if len(counts) != 2 * len(MODES):
+        fail(f"[2] found {len(counts)} fused_mlp_kernel instantiations in the SASS, "
+             f"not {2 * len(MODES)}")
+    for slab in (False, True):
+        c = counts[slab, MODES.index("high")]
+        if c["HGMMA"] == 0 or c["UBLKCP"] + c["UTMALDG"] == 0:
+            fail(f"[2] the high instantiation (slabs={slab}) has no wgmma (HGMMA) or no bulk "
+                 f"copy in its SASS: {c}")
+    code = f"FIRST_LAUNCH_ROWS = {FIRST_LAUNCH_ROWS}\n" + FIRST_LAUNCH
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=FIRST_LAUNCH_S, cwd=REPO)
+        said, rc = res.stdout + res.stderr, res.returncode
+    except subprocess.TimeoutExpired as e:
+        said = (e.stdout or b"").decode() if isinstance(e.stdout, bytes) else (e.stdout or "")
+        rc = "timeout"
+    lines = said.strip().splitlines()
+    print(f"    first launches in a child process, {FIRST_LAUNCH_ROWS} rows, each mode at d0=351 "
+          f"and 675: rc {rc} in {time.perf_counter() - t0:.1f} s; last: {lines[-1:]}")
+    if rc != 0:
+        fail(f"[2] a first launch failed or hung (rc {rc}); the child said:\n{said[-3000:]}")
+
+
 def contact_phases(torch, dev, smi: str) -> dict:
     """Phases [2]-[12]: the contact slices; returns the kernel's JSON entry."""
     from chd_tpu_torch.contact import data as data_lib
@@ -412,23 +565,8 @@ def contact_phases(torch, dev, smi: str) -> dict:
     from chd_tpu_torch.utils import build
 
 
-    # -- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    k = build.kernels()
-    print(f"[2] build: {k.path}: nvcc {k.build_seconds:.2f} s "
-          f"({time.perf_counter() - t0:.2f} s with loading; 0 nvcc s = an "
-          "earlier build was loaded)")
-    for line in k.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", k.path], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    hmma = sum("HMMA" in line for line in sass.splitlines())
-    print(f"    SASS: {hmma} HMMA instructions; "
-          f"{k.lib.chd_fused_mlp_smem_bytes(351)} B of shared memory a block at d0=351")
-    if hmma == 0:
-        fail("the kernel's SASS has no HMMA (tensor-core) instruction")
+    # -- 2. build ------------------------------------------------------------
+    build_phase(torch)
 
     # -- 3. kernel against the plain version --------------------------------
     golden = np.load(GOLDEN)
@@ -581,27 +719,18 @@ def contact_phases(torch, dev, smi: str) -> dict:
     kernel_ms = [event_ms(fused_mlp, args), event_ms(fused_mlp, args)]
     plain_ms.append(event_ms(fused_mlp_plain, args))
     ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
-    layers, frames2d, width, row_stride = args
-    rows = frames2d.shape[0] * ((frames2d.shape[1] - width) // row_stride + 1)
-    dims = [width] + [w.shape[1] for w, _ in layers]
-    flop = 2 * rows * sum(a * b for a, b in zip(dims, dims[1:]))
-    print(f"    fused_mlp alone, conv rows of V={BIG_V} F={BIG_F}: kernel {ms:.3f} ms, "
-          f"plain (unfold + 5 addmm) {p_ms:.3f} ms; {rows} rows x widths {dims}: "
-          f"{flop / 1e9:.1f} GFLOP, kernel {flop / ms / 1e9:.1f} TFLOP/s, "
-          f"plain {flop / p_ms / 1e9:.1f} TFLOP/s")
-    # the least time the card could take (the H100 SXM's peaks at 700 W):
-    # layers 0-2 as 3 bf16 tensor-core passes, layers 3-4 in float32 on CUDA
-    # cores; the bytes (frames, weights, logits, each moved once) take far less
-    macs = [a * b for a, b in zip(dims, dims[1:])]
-    tc_flop, cc_flop = 3 * 2 * rows * sum(macs[:3]), 2 * rows * sum(macs[3:])
-    n_bytes = (frames2d.numel() + sum(w.numel() + b.numel() for w, b in layers)
-               + rows * dims[-1]) * 4
-    ops_ms = (tc_flop / BF16_PEAK + cc_flop / F32_PEAK) * 1e3
-    bound_ms = max(ops_ms, n_bytes / HBM_RATE * 1e3)
-    bound_by = "operations" if ops_ms >= n_bytes / HBM_RATE * 1e3 else "bytes"
-    print(f"    bound: {tc_flop / 1e9:.1f} GFLOP on tensor cores (3 bf16 passes) + "
-          f"{cc_flop / 1e9:.2f} GFLOP float32 + {n_bytes / 1e6:.1f} MB -> {bound_ms:.3f} ms "
-          f"({bound_by}); the kernel takes {bound_ms / ms:.3f} of the card's peak")
+    b = mlp_bound(args, 3)
+    rows, flop, bound_ms, bound_by = b["rows"], b["flop"], b["bound_ms"], b["bound_by"]
+    print(f"    fused_mlp alone, conv rows of V={BIG_V} F={BIG_F}: kernel {ms:.3f} ms "
+          f"({', '.join('%.3f' % t for t in kernel_ms)}), plain (unfold + 5 addmm) {p_ms:.3f} ms; "
+          f"{rows} rows x widths {b['dims']}: {flop / 1e9:.1f} GFLOP, kernel "
+          f"{flop / ms / 1e9:.1f} TFLOP/s, plain {flop / p_ms / 1e9:.1f} TFLOP/s")
+    # the least time the card could take: the bytes take far less than the
+    # operations
+    print(f"    bound: {b['tc_flop'] / 1e9:.1f} GFLOP on tensor cores (3 bf16 passes) + "
+          f"{b['cc_flop'] / 1e9:.2f} GFLOP float32 + {b['bytes'] / 1e6:.1f} MB -> "
+          f"{bound_ms:.3f} ms ({bound_by}); the kernel takes {bound_ms / ms:.3f} of the card's "
+          f"peak; {stream_line(weight_stream(build.kernels().lib, 'high', rows, args[2]), ms)}")
 
     # -- 6. where the time goes: torch.profiler over the realistic batch ----
     print(f"[6] torch.profiler, {PROF_CALLS} calls of each path (after phase 5's "
@@ -647,7 +776,7 @@ def contact_phases(torch, dev, smi: str) -> dict:
             one = fused_mlp(layers, x[:1].contiguous(), width, stride)
             if not torch.equal(one, fused_mlp(layers, x, width, stride)[:one.shape[0]]):
                 fail(f"{jset} use_conv={use_conv}: rows depend on the batch")
-    full_ms = {}
+    full_ms, full_bound = {}, {}
     for use_conv in (True, False):
         det = infer.ContactDetector(rand_model(25), device=dev, joint_set="full",
                                     use_conv=use_conv)
@@ -657,8 +786,15 @@ def contact_phases(torch, dev, smi: str) -> dict:
         k1, k2 = event_ms(fused_mlp, fargs), event_ms(fused_mlp, fargs)
         p2 = event_ms(fused_mlp_plain, fargs)
         full_ms[use_conv] = (statistics.mean([k1, k2]), statistics.mean([p1, p2]))
+        fb = mlp_bound(fargs, 3)
+        full_bound[use_conv] = fb["bound_ms"]
         print(f"    full use_conv={use_conv} d0={fargs[2]}, V={BIG_V} F={BIG_F}: kernel "
-              f"{full_ms[use_conv][0]:.3f} ms, plain {full_ms[use_conv][1]:.3f} ms")
+              f"{full_ms[use_conv][0]:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+              f"{full_ms[use_conv][1]:.3f} ms; bound {fb['bound_ms']:.3f} ms ({fb['bound_by']}: "
+              f"{fb['tc_flop'] / 1e9:.1f} GFLOP on tensor cores + {fb['cc_flop'] / 1e9:.2f} GFLOP "
+              f"float32), {fb['bound_ms'] / full_ms[use_conv][0]:.3f} of it reached; "
+              + stream_line(weight_stream(build.kernels().lib, "high", fb["rows"], fargs[2]),
+                            full_ms[use_conv][0]))
 
     # -- 9. training steps, card vs CPU -------------------------------------
     from chd_tpu_torch.contact import evaluate as evaluate_lib
@@ -877,6 +1013,7 @@ def contact_phases(torch, dev, smi: str) -> dict:
         "library_ms": None,  # no one PyTorch call computes the folded 5-layer MLP
         "full_ms": full_ms[True][0],
         "full_plain_ms": full_ms[True][1],
+        "full_bound_ms": full_bound[True],
     }
 
 
@@ -1634,6 +1771,31 @@ def golden_video_dirs(tmp: str, golden) -> list:
     return dirs
 
 
+def cublas_one_pass_ms(torch, args, reps: int = 10) -> float:
+    """ms of one bf16 pass of layers 0-2 on the kernel's rows (``args``) as
+    three bf16 ``torch.matmul`` calls (cuBLAS), the windows materialized
+    beforehand and not timed: a yardstick for the kernel's one-pass
+    "default" mode, which the port never calls."""
+    layers, x, width, row_stride = args
+    h = x.unfold(1, width, row_stride).reshape(-1, width).to(torch.bfloat16)
+    ws = [w.to(torch.bfloat16) for w, _ in layers[:3]]
+
+    def run():
+        a = h
+        for w in ws:
+            a = torch.matmul(a, w)
+        return a
+
+    run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def precision_phase(torch, dev, smi: str) -> list:
     """Phase [22]: the detector's precision modes on the kernel. Returns the
     kernel line's entries of the modes other than "high" ([5]'s)."""
@@ -1641,6 +1803,7 @@ def precision_phase(torch, dev, smi: str) -> list:
     from chd_tpu_torch.models import torch_convert
     from chd_tpu_torch.ops import fused_mlp as fm
     from chd_tpu_torch.ops import gapfill
+    from chd_tpu_torch.utils import build
 
     golden = np.load(GOLDEN)
     gmodel = torch_convert.from_state_dict(
@@ -1708,16 +1871,15 @@ def precision_phase(torch, dev, smi: str) -> list:
             k1, k2 = event_ms(fm.fused_mlp, args), event_ms(fm.fused_mlp, args)
             p2 = event_ms(fm.emulation(mode), args)
             ms, p_ms = statistics.mean([k1, k2]), statistics.mean([p1, p2])
-            rows = frames2d.shape[0] * ((frames2d.shape[1] - width) // row_stride + 1)
-            dims = [width] + [w.shape[1] for w, _ in layers]
-            macs = [a * b for a, b in zip(dims, dims[1:])]
-            tc_flop = fm.PASSES[mode] * 2 * rows * sum(macs[:3])
-            cc_flop = 2 * rows * sum(macs[3:])
-            n_bytes = (frames2d.numel() + sum(w.numel() + b.numel() for w, b in layers)
-                       + rows * dims[-1]) * 4
-            ops_ms = (tc_flop / BF16_PEAK + cc_flop / F32_PEAK) * 1e3
-            bound_ms = max(ops_ms, n_bytes / HBM_RATE * 1e3)
-            bound_by = "operations" if ops_ms >= n_bytes / HBM_RATE * 1e3 else "bytes"
+            b = mlp_bound(args, fm.PASSES[mode])
+            rows, bound_ms, bound_by = b["rows"], b["bound_ms"], b["bound_by"]
+            tc_flop, cc_flop = b["tc_flop"], b["cc_flop"]
+            stream = weight_stream(build.kernels().lib, mode, rows, width)
+            extra = {}
+            if mode == "default":
+                # a yardstick, which the port never calls: one bf16 pass of
+                # layers 0-2 as three cuBLAS products on the same rows
+                extra["cublas_one_pass_ms"] = cublas_one_pass_ms(torch, args)
             # the main path in this mode, its launches counted alone
             contacts[mode], _ = det.infer(big)
             fm.fused_mlp.launches = 0
@@ -1733,12 +1895,13 @@ def precision_phase(torch, dev, smi: str) -> list:
                   f"{e_emu:.3e} (bound {bound_emu}: {ok_emu}), vs float64 {e_f64:.3e} "
                   f"({'bound ' + str(bound_f64) if bound_f64 else 'printed only'}); kernel "
                   f"{ms:.3f} ms ({k1:.3f}, {k2:.3f}), emulation {p_ms:.3f} ms; "
-                  f"{2 * rows * sum(macs) / ms / 1e9:.1f} TFLOP/s of the model's multiply-adds, "
+                  f"{b['flop'] / ms / 1e9:.1f} TFLOP/s of the model's multiply-adds, "
                   f"{(tc_flop + cc_flop) / ms / 1e9:.1f} executed; bound {bound_ms:.3f} ms "
                   f"({bound_by}: {tc_flop / 1e9:.1f} GFLOP on tensor cores + "
                   f"{cc_flop / 1e9:.2f} GFLOP float32), {bound_ms / ms:.3f} of it reached; "
                   f"detect_contacts launches {launches}, golden agreement "
-                  f"{['%.6f' % a for a in agree]}")
+                  f"{['%.6f' % a for a in agree]}; {stream_line(stream, ms)}"
+                  + "".join(f"; {k} {v:.3f}" for k, v in extra.items()))
             if not ok_emu:
                 fail(f"[22] {mode}: the kernel disagrees with its emulation ({e_emu})")
             if not ok_f64:
@@ -1753,7 +1916,7 @@ def precision_phase(torch, dev, smi: str) -> list:
                     "source": "chd_tpu_torch/csrc/fused_mlp.cu",
                     "replaces": "chd_tpu/ops/pallas_mlp.py:26", "launches": launches,
                     "max_abs_err": e_emu, "ms": ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None})
+                    "bound_by": bound_by, "library_ms": None, **extra})
         for mode in ("default", "bf16"):
             a_big = float((contacts[mode] == contacts["high"]).float().mean())
             a_gold = min(float((a == b).mean())

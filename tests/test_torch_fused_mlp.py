@@ -12,7 +12,7 @@ The kernel's arithmetic, the 3-pass bf16 split of chd_tpu's
 precision="high", is held here through its CPU emulation
 ``fused_mlp_split_plain`` (against the same chd_tpu functions, a float64
 chain and the golden contacts), and the weight stream it reads through
-``pack_weights``.
+``pack_weights`` and its address function ``stream_index``.
 """
 import os
 
@@ -30,8 +30,9 @@ from chd_tpu.ops.pallas_mlp import fused_mlp as pallas_fused_mlp
 from chd_tpu_torch.contact import infer
 from chd_tpu_torch.models import contact_mlp, torch_convert
 from chd_tpu_torch.ops import gapfill
-from chd_tpu_torch.ops.fused_mlp import (fused_mlp, fused_mlp_plain, fused_mlp_split_plain,
-                                         pack_weights, split_bf16)
+from chd_tpu_torch.ops.fused_mlp import (PARTS, fused_mlp, fused_mlp_plain,
+                                         fused_mlp_split_plain, pack_weights, split_bf16,
+                                         stream_index)
 from test_torch_contact_infer import FIXTURES
 from test_torch_contact_mlp import golden_state_dict, random_params
 
@@ -261,50 +262,109 @@ def test_golden_contacts_with_split_emulation(use_conv):
         assert agree >= 0.999, f"video {i}: agreement {agree}"
 
 
-def _unswizzle(half, rows, row_bits):
-    """One (rows x 16-byte chunks) half of a packed tile back to (rows, in)."""
-    t = half.reshape(rows, -1, 8)
-    r = torch.arange(rows)[:, None]
-    c = torch.arange(t.shape[1])[None, :]
-    return t[r, c ^ row_bits(r)].reshape(rows, -1)
+def _core(rows):
+    """Offsets, in bf16 values, of a (rows, 16) k16 slab's elements in the
+    kernel's wgmma operand layout: 8-row groups 128 values apart, the two
+    8-wide k halves 64 apart, rows 8 apart (the descriptor's stride and
+    leading byte offsets, 256 and 128 bytes)."""
+    n = torch.arange(rows)[:, None]
+    k = torch.arange(16)[None, :]
+    return (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+
+
+def _as_f32(block):
+    return block.contiguous().view(torch.float32)
+
+
+def _walk_stream(pack, d0, parts):
+    """The packed stream read in the kernel's order, at the offsets its
+    wgmma descriptors read: per 128-column h1 chunk, layer 0's stages of 64
+    inputs (the first consumer warpgroup's 64 outputs, then the second's),
+    layer 1's stages of 16 inputs (256 outputs each); then layer 2 by halves
+    of its 128 outputs, each warpgroup's 256 inputs. Returns layers 0-2's
+    (parts, out, in) bf16 parts (layer 0 zero-padded to whole stages) and
+    the stages left, the tail's."""
+    kt0 = -(-d0 // 64)
+    w0 = torch.zeros((parts, 1024, kt0 * 64), dtype=torch.bfloat16)
+    w1 = torch.zeros((parts, 512, 1024), dtype=torch.bfloat16)
+    w2 = torch.zeros((parts, 128, 512), dtype=torch.bfloat16)
+    c64, c256 = _core(64), _core(256)
+    stages = iter(pack)
+    for c in range(8):
+        for kt in range(kt0):
+            st = next(stages)
+            for ks in range(4):
+                for w in range(2):
+                    w0[:, c * 128 + w * 64:c * 128 + (w + 1) * 64,
+                       kt * 64 + ks * 16:kt * 64 + (ks + 1) * 16] = st[:, ks * 2048 + w * 1024 + c64]
+        for ks in range(8):
+            st = next(stages)
+            for w in range(2):
+                w1[:, w * 256:(w + 1) * 256, c * 128 + ks * 16:c * 128 + (ks + 1) * 16] = (
+                    st[:, w * 4096 + c256])
+    for hf in range(2):
+        for kt in range(4):
+            st = next(stages)
+            for w in range(2):
+                for jj in range(4):
+                    col = w * 256 + (4 * kt + jj) * 16
+                    w2[:, hf * 64:(hf + 1) * 64, col:col + 16] = st[:, w * 4096 + jj * 1024 + c64]
+    return w0, w1, w2, list(stages)
 
 
 @pytest.mark.parametrize("d0", [351, 243, 216, 675])  # 675: the full joint set
 def test_pack_weights_is_the_kernels_tile_stream(d0):
-    """Walking the packed stream in the kernel's order (per 64-column h1
-    chunk: layer 0's 64 x 128 tiles along k, then layer 1's 512 x 16 tiles
-    along k; then layer 2's 64 x 128 tiles, k outer) and undoing the
-    swizzle gives back the split weights of layers 0-2, zero past d0."""
+    """Walking the packed 2-part stream in the kernel's order (``_walk_stream``)
+    gives back the split weights of layers 0-2, zero past d0, and then one
+    stage of layers 3-4 in float32, bitwise: w3 (in, out) in part 0; w4, b3
+    and b4, padded to 32 outputs, in part 1."""
     rng = np.random.default_rng(d0)
     dims = [d0, *contact_mlp.HIDDEN, 20]
     layers = [(torch.from_numpy(rng.normal(size=(dims[i], dims[i + 1])).astype(np.float32)),
-               torch.zeros(dims[i + 1])) for i in range(5)]
+               torch.from_numpy(rng.normal(size=dims[i + 1]).astype(np.float32)))
+              for i in range(5)]
     pack = pack_weights(layers)
-    kt0 = -(-d0 // 128)
-    assert pack.dtype == torch.bfloat16 and pack.shape == (16 * (kt0 + 4) + 8, 2, 8192)
-    w0 = torch.zeros((2, 1024, kt0 * 128), dtype=torch.bfloat16)
-    w1 = torch.zeros((2, 512, 1024), dtype=torch.bfloat16)
-    w2 = torch.zeros((2, 128, 512), dtype=torch.bfloat16)
-    tiles = iter(pack)
-    for c in range(16):
-        for kt in range(kt0):
-            tile = next(tiles)
-            for h in range(2):
-                w0[h, c * 64:(c + 1) * 64, kt * 128:(kt + 1) * 128] = _unswizzle(
-                    tile[h], 64, lambda r: r & 7)
-        for ks in range(4):
-            tile = next(tiles)
-            for h in range(2):
-                w1[h, :, c * 64 + ks * 16:c * 64 + (ks + 1) * 16] = _unswizzle(
-                    tile[h], 512, lambda r: (r >> 2) & 1)
-    for kt in range(4):
-        for nt in range(2):
-            tile = next(tiles)
-            for h in range(2):
-                w2[h, nt * 64:(nt + 1) * 64, kt * 128:(kt + 1) * 128] = _unswizzle(
-                    tile[h], 64, lambda r: r & 7)
-    assert next(tiles, None) is None
+    kt0 = -(-d0 // 64)
+    assert pack.dtype == torch.bfloat16 and pack.shape == (8 * (kt0 + 8) + 8 + 1, 2, 8192)
+    w0, w1, w2, tail = _walk_stream(pack, d0, 2)
+    assert len(tail) == 1
     for got, (w, _) in zip((w0[:, :, :d0], w1, w2), layers):
         hi, lo = split_bf16(w.T.contiguous())
         assert torch.equal(got[0], hi) and torch.equal(got[1], lo)
     assert not w0[:, :, d0:].any()
+    (w3, b3), (w4, b4) = layers[3:]
+    assert torch.equal(_as_f32(tail[0][0]).reshape(128, 32), w3)
+    rest = _as_f32(tail[0][1])
+    assert torch.equal(rest[:1024].reshape(32, 32)[:, :20], w4)
+    assert not rest[:1024].reshape(32, 32)[:, 20:].any()
+    assert torch.equal(rest[1024:1056], b3) and torch.equal(rest[1056:1076], b4)
+    assert not rest[1076:].any()
+
+
+@pytest.mark.parametrize("d0", [351, 675])
+@pytest.mark.parametrize("mode", ["default", "high", "highest"])
+def test_stream_index_round_trip(mode, d0):
+    """Unpacking a mode's stream through ``stream_index``, the address
+    function ``pack_weights`` packs by, gives back that mode's split parts
+    (1, 2 or 3) of layers 0-2, each element from exactly one place, zero
+    past d0; the tail stages come after, one or (at one part) two."""
+    parts = PARTS[mode]
+    rng = np.random.default_rng(d0 + parts)
+    dims = [d0, *contact_mlp.HIDDEN, 20]
+    layers = [(torch.from_numpy(rng.normal(size=(dims[i], dims[i + 1])).astype(np.float32)),
+               torch.zeros(dims[i + 1])) for i in range(5)]
+    pack = pack_weights(layers, parts)
+    idx = stream_index(d0)
+    k0p = -(-d0 // 64) * 64
+    sizes = (1024 * k0p, 512 * 1024, 128 * 512)
+    assert torch.equal(idx.flatten().sort().values, torch.arange(sum(sizes)))
+    assert pack.shape == (idx.shape[0] + (2 if parts == 1 else 1), parts, 8192)
+    flat = torch.zeros((parts, sum(sizes)), dtype=torch.bfloat16)
+    flat[:, idx.flatten()] = pack[:idx.shape[0]].transpose(0, 1).reshape(parts, -1)
+    w0t, w1t, w2t = flat.split(sizes, dim=1)
+    w0t = w0t.reshape(parts, 1024, k0p)
+    assert not w0t[:, :, d0:].any()
+    for got, (w, _) in zip((w0t[:, :, :d0], w1t.reshape(parts, 512, 1024),
+                            w2t.reshape(parts, 128, 512)), layers):
+        for p, want in enumerate(split_bf16(w.T.contiguous(), parts)):
+            assert torch.equal(got[p], want)

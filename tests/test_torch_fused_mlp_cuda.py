@@ -12,7 +12,8 @@ does); atol 5e-5, rtol 1e-5 against the split emulation
 exact products in float32 through cuBLAS, where the tensor cores add each
 k16 step's products with their own internal rounding (~1.4e-5 measured at
 4096 rows on an H100). Rows are bitwise the same whatever batch they are in,
-because every row runs the same code in a fixed order.
+because every row runs the same code in a fixed order, whichever block and
+cluster of the persistent grid computes its 64-row tile.
 
 The other modes of the kernel, each against its emulation
 (``ops.fused_mlp.emulation``): "highest" (6 bf16 passes) within 1e-5 of
@@ -238,3 +239,56 @@ def test_each_mode_against_its_emulation(model, mode, joint_set, use_conv):
     _assert_mode_close(mode, got, layers, (rows, width, stride))
     one = fused_mlp(layers, rows[:1].contiguous(), width, stride)
     assert torch.equal(one, got[:one.shape[0]])
+
+
+# Row counts at the edges of the 64-row tile and of the 2-block cluster: one
+# tile, 2 tiles, 3 (a cluster with a block that has no rows), 5, and 133
+# tiles (above one wave of the card's clusters, an odd count).
+EDGE_ROWS = (1, 63, 64, 65, 127, 128, 129, 300, 8512)
+
+
+@pytest.fixture(scope="module")
+def edge_cases():
+    """For d0 = 351 (rows resident) and 675 (slabs): random layers and
+    EDGE_ROWS[-1] dense rows, and each mode's logits of all of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {}
+    for d0 in (351, 675):
+        rng = np.random.default_rng(d0)
+        dims = [d0, *contact_mlp.HIDDEN, 20]
+        ws = [(torch.from_numpy(rng.normal(0, dims[i] ** -0.5, (dims[i], dims[i + 1]))
+                                .astype(np.float32)).cuda(),
+               torch.from_numpy(rng.normal(0, 0.1, dims[i + 1]).astype(np.float32)).cuda())
+              for i in range(5)]
+        x = torch.from_numpy(rng.normal(size=(EDGE_ROWS[-1], d0)).astype(np.float32)).cuda()
+        for mode in MODES:
+            layers = MlpLayers(ws, mode)
+            cases[d0, mode] = (layers, x, fused_mlp(layers, x, d0, d0))
+    torch.cuda.synchronize()
+    return cases
+
+
+@pytest.mark.parametrize("B", EDGE_ROWS)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("d0", [351, 675])
+def test_edge_row_counts(edge_cases, d0, mode, B):
+    """B rows in each mode against the mode's emulation, and bitwise the
+    first B rows of the EDGE_ROWS[-1]-row batch."""
+    layers, x, big = edge_cases[d0, mode]
+    xb = x[:B].contiguous()
+    got = fused_mlp(layers, xb, d0, d0)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 20)
+    assert torch.equal(got, big[:B])
+    want = emulation(mode)(layers, xb, d0, d0)
+    if mode == "high":
+        torch.testing.assert_close(got, want, atol=SPLIT_ATOL, rtol=SPLIT_RTOL)
+    elif mode == "highest":
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert (got - want).abs().max().item() <= 4 * 2.0 ** -8 * want.abs().max().item()
+        if B >= 300:
+            gate = single_pass_gate(got, layers, xb, d0, d0, mode)
+            assert gate["ok"] and gate["controls_fail"], gate

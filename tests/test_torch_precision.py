@@ -45,7 +45,7 @@ from chd_tpu_torch.ops import fused_mlp as fm
 from chd_tpu_torch.ops import gapfill
 from test_torch_contact_infer import _keypoints, _stable, _write_video_dirs
 from test_torch_contact_mlp import golden_state_dict, random_params
-from test_torch_fused_mlp import _folded, _layers, _unswizzle
+from test_torch_fused_mlp import _as_f32, _folded, _layers, _walk_stream
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 W, P = 9, 5
@@ -209,42 +209,26 @@ def test_detect_contacts_takes_precision_and_mlp_dtype(tmp_path):
 @pytest.mark.parametrize("parts", [1, 3])
 def test_pack_weights_parts_are_the_kernels_tile_stream(parts):
     """The stream of a 1-part ("default", bf16 storage) and a 3-part
-    ("highest") mode, unswizzled in the kernel's order, gives back each
-    split part of layers 0-2 (tests/test_torch_fused_mlp.py walks the
-    2-part stream the same way)."""
+    ("highest") mode, walked in the kernel's order, gives back each split
+    part of layers 0-2, then layers 3-4 in float32: in two 1-part stages, or
+    in parts 0 and 1 of one 3-part stage with zeros in part 2
+    (tests/test_torch_fused_mlp.py walks the 2-part stream the same way)."""
     d0 = 351
     rng = np.random.default_rng(parts)
     dims = [d0, *contact_mlp.HIDDEN, 20]
     layers = [(torch.from_numpy(rng.normal(size=(dims[i], dims[i + 1])).astype(np.float32)),
                torch.zeros(dims[i + 1])) for i in range(5)]
     pack = fm.pack_weights(layers, parts)
-    assert pack.shape == (16 * (3 + 4) + 8, parts, 8192)
-    got = [torch.zeros((parts, 1024, 384), dtype=torch.bfloat16),
-           torch.zeros((parts, 512, 1024), dtype=torch.bfloat16),
-           torch.zeros((parts, 128, 512), dtype=torch.bfloat16)]
-    tiles = iter(pack)
-    sw0, sw1 = (lambda r: r & 7), (lambda r: (r >> 2) & 1)
-    for c in range(16):
-        for kt in range(3):
-            tile = next(tiles)
-            for h in range(parts):
-                got[0][h, c * 64:(c + 1) * 64, kt * 128:(kt + 1) * 128] = _unswizzle(
-                    tile[h], 64, sw0)
-        for ks in range(4):
-            tile = next(tiles)
-            for h in range(parts):
-                got[1][h, :, c * 64 + ks * 16:c * 64 + (ks + 1) * 16] = _unswizzle(
-                    tile[h], 512, sw1)
-    for kt in range(4):
-        for nt in range(2):
-            tile = next(tiles)
-            for h in range(parts):
-                got[2][h, nt * 64:(nt + 1) * 64, kt * 128:(kt + 1) * 128] = _unswizzle(
-                    tile[h], 64, sw0)
-    assert next(tiles, None) is None
-    for g, (w, _) in zip((got[0][:, :, :d0], got[1], got[2]), layers):
+    assert pack.shape == (8 * (6 + 8) + 8 + (2 if parts == 1 else 1), parts, 8192)
+    w0, w1, w2, tail = _walk_stream(pack, d0, parts)
+    for g, (w, _) in zip((w0[:, :, :d0], w1, w2), layers):
         for h, part in enumerate(fm.split_bf16(w.T.contiguous(), parts)):
             assert torch.equal(g[h], part)
+    blocks = [t[0] for t in tail] if parts == 1 else list(tail[0])
+    assert len(blocks) == (2 if parts == 1 else 3)
+    assert torch.equal(_as_f32(blocks[0]).reshape(128, 32), layers[3][0])
+    assert torch.equal(_as_f32(blocks[1])[:1024].reshape(32, 32)[:, :20], layers[4][0])
+    assert all(not b.any() for b in blocks[2:])
 
 
 def _summed_in_float64(mode, layers, x, width, row_stride):
