@@ -47,6 +47,7 @@ from ..ops import gapfill, voting, windows
 from ..ops.fused_mlp import MlpLayers, fused_mlp, mlp_mode
 from ..parallel import mesh as mesh_lib
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 # Constants matching training of the reference model
 TRAIN_DIM = (1280, 720)
@@ -124,18 +125,23 @@ def _infer_batch(op_batch: torch.Tensor, layers: Layers, *, window_size: int,
     carry the precision mode.
 
     Gap-fill runs on the subset joints only: the other joints never feed
-    the model.
+    the model. The three steps are spans: ``detect.gapfill`` (the joint
+    subset, gap-fill and normalization), ``detect.mlp`` (the kernel's
+    logits) and ``detect.vote`` (sigmoid, threshold and the vote merge).
     """
     V, F = op_batch.shape[:2]
     joints, root_in_subset, root_appended = subset_joints(joint_subset)
-    idx = torch.tensor(joints, device=op_batch.device)
-    x = gapfill.preprocess_keypoints(op_batch[:, :, idx], conf_thresh, normalization)
-    logits = mlp_logits(x, layers, window_size=window_size,
-                        root_in_subset=root_in_subset, root_appended=root_appended,
-                        use_confidence=use_confidence, use_conv=use_conv, mlp=mlp)
-    probs = torch.sigmoid(logits).reshape(V, F - window_size + 1, pred_size, 4)
-    preds = (probs > classify_thresh).to(torch.float32)
-    return voting.merge_votes_batch(preds, window_size), probs
+    with span("detect.gapfill"):
+        idx = torch.tensor(joints, device=op_batch.device)
+        x = gapfill.preprocess_keypoints(op_batch[:, :, idx], conf_thresh, normalization)
+    with span("detect.mlp"):
+        logits = mlp_logits(x, layers, window_size=window_size,
+                            root_in_subset=root_in_subset, root_appended=root_appended,
+                            use_confidence=use_confidence, use_conv=use_conv, mlp=mlp)
+    with span("detect.vote"):
+        probs = torch.sigmoid(logits).reshape(V, F - window_size + 1, pred_size, 4)
+        preds = (probs > classify_thresh).to(torch.float32)
+        return voting.merge_votes_batch(preds, window_size), probs
 
 
 class ContactDetector:
@@ -188,12 +194,15 @@ class ContactDetector:
         both on the detector's device. With ``mesh`` (``parallel.mesh``, on
         the detector's device) each rank runs its contiguous slice of the
         videos (V must divide over the mesh's batch shards), and so the
-        kernel, and the results are gathered to every rank."""
-        x = op_batch.to(self.device, torch.float32)
-        if mesh is None:
-            return _infer_batch(x, self.layers, **self.kw)
-        local = mesh_lib.shard_batch(mesh, x)
-        return mesh_lib.gather(mesh, _infer_batch(local, self.layers, **self.kw))
+        kernel, and the results are gathered to every rank. A call is the
+        span ``detect.infer`` (attributes ``V``, ``F``) over
+        ``_infer_batch``'s."""
+        with span("detect.infer", V=op_batch.shape[0], F=op_batch.shape[1]):
+            x = op_batch.to(self.device, torch.float32)
+            if mesh is None:
+                return _infer_batch(x, self.layers, **self.kw)
+            local = mesh_lib.shard_batch(mesh, x)
+            return mesh_lib.gather(mesh, _infer_batch(local, self.layers, **self.kw))
 
     def detect(self, op_data: np.ndarray, seq_len: Optional[int] = None) -> np.ndarray:
         """Single video (F, 25, 3) → (seq_len, 4) int contacts."""

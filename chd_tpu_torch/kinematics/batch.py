@@ -29,6 +29,7 @@ from ..core.animation import Animation
 from ..parallel import mesh as mesh_lib
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import banded as banded_lib
 from . import floor as floor_lib
 from . import trajectory as traj_lib
@@ -186,23 +187,28 @@ def _refine_core(arrs, consts: BatchConsts, w1: TermWeights, w2: TermWeights,
                  graphs: Optional[GraphCache] = None):
     """IK init → stage-1 LM → floor fit and contact pruning (or the given
     ``floor`` (normal, point)) → stage-2 LM, on the device with no host
-    sync. Returns (x2, normals, points, vc2, rotations, y, root)."""
+    sync, each stage a span (``kin.ik``, ``kin.lm1``, ``kin.floor``,
+    ``kin.lm2``; the LM spans carry their ``steps``). Returns (x2, normals,
+    points, vc2, rotations, y, root)."""
     B, F = arrs["pose3d"].shape[:2]
     J = arrs["offsets"].shape[1]
-    rot_ik, pos_ik = ik_init_batch(arrs, consts, graphs)
-    x0 = initial_x(rot_ik, pos_ik)
+    with span("kin.ik"):
+        x0 = initial_x(*ik_init_batch(arrs, consts, graphs))
     zero3 = torch.zeros((B, 3), dtype=x0.dtype, device=x0.device)
     if floor is None:
         data1 = make_data(arrs, consts, arrs["vc"], zero3, zero3)
     else:
         data1 = make_data(arrs, consts, arrs["vc"], floor[0].expand(B, 3), floor[1].expand(B, 3))
-    x1 = lm_stage(x0, data1, w1, consts, lm_cfg, graphs)
+    with span("kin.lm1", steps=lm_cfg.max_iters):
+        x1 = lm_stage(x0, data1, w1, consts, lm_cfg, graphs)
     if floor is None:
-        normals, points, vc2 = floor_stage(x1, arrs, consts)
+        with span("kin.floor"):
+            normals, points, vc2 = floor_stage(x1, arrs, consts)
     else:
         normals, points, vc2 = data1.floor_normal, data1.floor_point, arrs["vc"]
     data2 = make_data(arrs, consts, vc2, normals, points)
-    x2 = lm_stage(x1, data2, w2, consts, lm_cfg, graphs)
+    with span("kin.lm2", steps=lm_cfg.max_iters):
+        x2 = lm_stage(x1, data2, w2, consts, lm_cfg, graphs)
 
     xm = x2.reshape(B, F, -1)
     rot_q = quat.from_euler(xm[..., 3:].reshape(B, F, J, 3), "xyz", world=True)
@@ -239,13 +245,19 @@ def optimize_trajectory_batch(
     CUDA graphs, bitwise the eager path's results (4.3x faster at 16 x 100 on an
     H100; PERF.md); on the CPU they run eagerly. ``graphs``, a
     ``GraphCache`` kept across calls, saves the capture of each step shape
-    (~2 s at 16 x 100); without it each call captures anew.
+    (13.3 s of host time at 16 x 100 on an H100, nearly all of it the LM
+    step's; PERF.md); without it each call captures anew.
 
     With ``mesh`` (``parallel.mesh.Mesh``) the whole batch is padded first,
     so a sequence pads alike sharded or not; then each rank solves its
     slice of it (the batch must divide over the mesh's batch shards) on its
     own device (``mesh.device``, in place of ``device``), with its own CUDA
     graphs and no collective inside a step, and the results are gathered.
+
+    A call is the span ``kin.call`` (attributes ``B``, ``F``) over
+    ``kin.prepare`` (host prep and the copy to the device), the stages of
+    ``_refine_core`` and ``kin.unpack`` (the copy back and the host's
+    results): ``utils.profiling.snapshot()`` reads them.
     """
     if mesh is not None:
         device = mesh.device
@@ -254,20 +266,25 @@ def optimize_trajectory_batch(
         graphs = GraphCache()
     parents = tuple(skeleton.parents)
     lens = [p["pose2d"].shape[0] for p in problems]
-    arrs, F = prepare_batch_arrays(problems, skeleton, cam_focal, cam_pp, device, dtype)
-    ik_cfg = IKConfig(iterations=ik_iterations, damping=7.0, solver=ik_solver)
-    consts = batch_consts(parents, F, ik_cfg, device, dtype, graphs, lm_solver)
-    given = None
-    if floor is not None:
-        given = tuple(torch.as_tensor(np.asarray(v), dtype=dtype, device=device) for v in floor)
+    with span("kin.call", B=len(problems), F=max(lens)):
+        with span("kin.prepare"):
+            arrs, F = prepare_batch_arrays(problems, skeleton, cam_focal, cam_pp, device, dtype)
+            ik_cfg = IKConfig(iterations=ik_iterations, damping=7.0, solver=ik_solver)
+            consts = batch_consts(parents, F, ik_cfg, device, dtype, graphs, lm_solver)
+        given = None
+        if floor is not None:
+            given = tuple(torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+                          for v in floor)
 
-    if mesh is None:
-        out = _refine_core(arrs, consts, traj_lib.STAGE1, traj_lib.STAGE2, lm_cfg, given, graphs)
-    else:
-        out = mesh_lib.gather(mesh, _refine_core(mesh_lib.shard_batch(mesh, arrs), consts,
-                                                 traj_lib.STAGE1, traj_lib.STAGE2, lm_cfg,
-                                                 given, graphs))
-    return unpack_results(out, arrs["offsets"], lens, skeleton, cam_focal, cam_pp)
+        if mesh is None:
+            out = _refine_core(arrs, consts, traj_lib.STAGE1, traj_lib.STAGE2, lm_cfg, given,
+                               graphs)
+        else:
+            out = mesh_lib.gather(mesh, _refine_core(mesh_lib.shard_batch(mesh, arrs), consts,
+                                                     traj_lib.STAGE1, traj_lib.STAGE2, lm_cfg,
+                                                     given, graphs))
+        with span("kin.unpack"):
+            return unpack_results(out, arrs["offsets"], lens, skeleton, cam_focal, cam_pp)
 
 
 def unpack_results(out, offsets: torch.Tensor, lens: Sequence[int], skeleton: Animation,

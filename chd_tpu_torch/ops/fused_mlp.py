@@ -45,6 +45,7 @@ import torch
 
 from ..models.contact_mlp import HIDDEN
 from ..utils import build
+from ..utils.profiling import span
 
 N_LAYERS = 5
 SPLIT_LAYERS = 3  # layers 0-2 run in bf16 passes, 3-4 in f32
@@ -261,9 +262,9 @@ def pack_weights(layers: Layers, parts: int = 2) -> torch.Tensor:
 class MlpLayers(list):
     """The five (w, b) layers in one of the kernel's ``MODES``, and the
     kernel's ``pack_weights`` of them, built at the first ``packed()`` and
-    kept, so that a detector packs once and its calls only launch. In
-    ``"bf16"`` the layers are kept rounded to bf16. The tensors must not
-    change after that."""
+    kept, so that a detector packs once and its calls only launch (the
+    packing is the span ``fused_mlp.pack``). In ``"bf16"`` the layers are
+    kept rounded to bf16. The tensors must not change after that."""
 
     _packed: Optional[torch.Tensor] = None
 
@@ -278,7 +279,8 @@ class MlpLayers(list):
 
     def packed(self) -> torch.Tensor:
         if self._packed is None:
-            self._packed = pack_weights(self, PARTS[self.mode])
+            with span("fused_mlp.pack"):
+                self._packed = pack_weights(self, PARTS[self.mode])
         return self._packed
 
 

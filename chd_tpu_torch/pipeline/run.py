@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -53,7 +53,8 @@ from ..retarget.mixamo import retarget
 from ..utils.config import PipelineConfig
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import resolve_device
-from ..utils.log import get_logger, stage_timer
+from ..utils.log import get_logger
+from ..utils.profiling import span
 
 log = get_logger("pipeline")
 
@@ -303,12 +304,25 @@ def _physics_stage(video_dir, cfg, video_name, device, dtype, graphs) -> dict:
     return {"stats": stats, "dynamics_ok": dynamics_ok, "out_dir": out_dir}
 
 
+def _stage(name: str, label: str, fn: Callable, *args, **kw):
+    """``fn(*args, **kw)`` as the span ``name``, logged as ``label`` when it
+    starts and with the span's host seconds when it ends."""
+    log.info("%s ...", label)
+    sp = span(name)
+    try:
+        with sp:
+            return fn(*args, **kw)
+    finally:
+        log.info("%s done in %.1fs", label, sp.host_s)
+
+
 def run_pipeline(video_dir: str, cfg: PipelineConfig, char_skel_bvh: Optional[str] = None,
                  device="cuda", dtype=torch.float32) -> dict:
-    """Full per-video pipeline (run_phys_mocap.py main loop)."""
-    with stage_timer(f"kinematic [{video_dir}]", log):
-        run_kinematic_stage(video_dir, cfg, device=device, dtype=dtype)
-    with stage_timer(f"retarget → {cfg.character}", log):
-        run_retarget_stage(video_dir, cfg, char_skel_bvh, device=device, dtype=dtype)
-    with stage_timer("physics", log):
-        return run_physics_stage(video_dir, cfg, device=device, dtype=dtype)
+    """Full per-video pipeline (run_phys_mocap.py main loop): the spans
+    ``run.kinematic``, ``run.retarget`` and ``run.physics``."""
+    _stage("run.kinematic", f"kinematic [{video_dir}]", run_kinematic_stage, video_dir, cfg,
+           device=device, dtype=dtype)
+    _stage("run.retarget", f"retarget → {cfg.character}", run_retarget_stage, video_dir, cfg,
+           char_skel_bvh, device=device, dtype=dtype)
+    return _stage("run.physics", "physics", run_physics_stage, video_dir, cfg, device=device,
+                  dtype=dtype)

@@ -20,6 +20,8 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+from .profiling import span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "chd_tpu_torch")
@@ -66,34 +68,42 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def kernels() -> Kernels:
-    """The built kernel library; builds it on the first call."""
+    """The built kernel library; builds it on the first call. The call that
+    loads it is the span ``fused_mlp.build`` (the hash, nvcc where no build
+    is there, the load; attribute ``nvcc_s``)."""
     global _kernels
     with _lock:
         if _kernels is not None:
             return _kernels
-        sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
-            with open(src, "rb") as f:
-                h.update(os.path.basename(src).encode() + b"\0" + f.read())
-        out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
-        path = os.path.join(out_dir, "libchd_tpu_torch.so")
-        seconds, log = 0.0, ""
-        if not os.path.exists(path):
-            os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{log}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        _declare(lib)
-        _kernels = Kernels(lib, path, seconds, log)
+        with span("fused_mlp.build") as sp:
+            _kernels = _build()
+            sp.attrs["nvcc_s"] = _kernels.build_seconds
         return _kernels
+
+
+def _build() -> Kernels:
+    sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
+    path = os.path.join(out_dir, "libchd_tpu_torch.so")
+    seconds, log = 0.0, ""
+    if not os.path.exists(path):
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    _declare(lib)
+    return Kernels(lib, path, seconds, log)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -7,12 +7,19 @@ same kernels on the same inputs, launched by one call, as ``jax.jit``
 launches ``chd_tpu``'s whole loop. The eager path stays; a caller opts in by
 creating a ``GraphCache`` and passing it to the solver, and reuses it across
 calls so each step shape is captured once.
+
+Each capture is the span ``graphs.capture`` of ``utils.profiling`` (warm-up
+and capture), whose attributes ``kernel_nodes`` and ``copy_nodes`` count
+the graph's kernels and copies.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Callable, Dict, Hashable, Sequence, Tuple
 
 import torch
+
+from .profiling import span
 
 Step = Callable[[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]], Tuple[torch.Tensor, ...]]
 
@@ -61,19 +68,56 @@ class GraphCache:
         return tuple(s.clone() for s in entry.state)
 
     def _capture(self, step: Step, state, args) -> _Entry:
-        static_state = tuple(s.clone() for s in state)
-        static_args = tuple(a.clone() for a in args)
-        # warm up on a side stream (lazy initialisation of handles and
-        # workspaces must not land in the capture), on copies of the state
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            step(tuple(s.clone() for s in static_state), static_args)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            new = step(static_state, static_args)
-            for s, n in zip(static_state, new):
-                s.copy_(n)
+        with span("graphs.capture") as sp:
+            static_state = tuple(s.clone() for s in state)
+            static_args = tuple(a.clone() for a in args)
+            # warm up on a side stream (lazy initialisation of handles and
+            # workspaces must not land in the capture), on copies of the state
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step(tuple(s.clone() for s in static_state), static_args)
+            torch.cuda.current_stream().wait_stream(side)
+            # the graph is kept past its capture to count its nodes
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph):
+                new = step(static_state, static_args)
+                for s, n in zip(static_state, new):
+                    s.copy_(n)
+            sp.attrs["kernel_nodes"], sp.attrs["copy_nodes"] = node_counts(
+                graph.raw_cuda_graph())
+            graph.instantiate()
         self.captures += 1
         return _Entry(graph, static_state, static_args)
+
+
+_CU_GRAPH_NODE_TYPE_KERNEL, _CU_GRAPH_NODE_TYPE_MEMCPY = 0, 1
+
+
+def node_counts(raw_graph: int) -> Tuple[int, int]:
+    """(kernel nodes, copy nodes) of a captured ``cudaGraph_t`` (the top
+    level of ``CUDAGraph.raw_cuda_graph()``). A replay launches the kernels,
+    and runs each device-to-device copy node as a copy kernel of the
+    driver's own. Counted through the CUDA driver the process has loaded,
+    whose ``CUgraph`` a runtime graph is."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphGetNodes.restype = cu.cuGraphNodeGetType.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    _cu_check(cu.cuGraphGetNodes(raw_graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu_check(cu.cuGraphGetNodes(raw_graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind = ctypes.c_int(-1)
+    kernels = copies = 0
+    for node in nodes[:n.value]:
+        _cu_check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        kernels += kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
+        copies += kind.value == _CU_GRAPH_NODE_TYPE_MEMCPY
+    return kernels, copies
+
+
+def _cu_check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA driver error {err}")

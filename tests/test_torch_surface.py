@@ -46,6 +46,9 @@ MEANT = {
     ("kinematics/ik.py", "SOLVE_CHUNK"):
         ("chd_tpu_torch.kinematics.ik.solve_ck_ik",
          "one batched solve over every frame: the chunks bound the TPU's VMEM"),
+    ("utils/log.py", "stage_timer"):
+        ("chd_tpu_torch.utils.profiling.span",
+         "the pipeline's stages are spans, logged by pipeline.run"),
 }
 
 
