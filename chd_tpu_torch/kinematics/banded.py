@@ -55,11 +55,13 @@ def coloring_masks(num_frames: int, dofs_per_frame: int, bandwidth: int = 2,
     return torch.as_tensor(masks, dtype=dtype, device=resolve_device(device))
 
 
-def banded_jtj(jtjv: Callable, masks: torch.Tensor, batch: int, num_frames: int,
+def banded_jtj(many: Callable, masks: torch.Tensor, batch: int, num_frames: int,
                dofs_per_frame: int, bandwidth: int = 2) -> List[torch.Tensor]:
     """The lower block bands of A = JᵀJ of every problem, from matrix-free
-    products: ``jtjv`` maps (B, n) tangents to (B, n) products, and the
-    masks (M, n) broadcast over the B problems in one ``vmap`` pass.
+    products: ``many`` maps (M, B, n) tangents to their (M, B, n) products
+    (``torch.func.vmap`` of a (B, n) product, or a product kernel's launch
+    over a tangent axis), and the masks (M, n) go in broadcast over the B
+    problems in one call.
 
     Returns blocks[k] of shape (B, F, D, D) with blocks[k][:, f] = A[f+k, f]
     (rows f+k, cols f; the last k entries are zero). blocks[0] is the
@@ -68,7 +70,7 @@ def banded_jtj(jtjv: Callable, masks: torch.Tensor, batch: int, num_frames: int,
     stride = 2 * bandwidth + 1
     F, D = num_frames, dofs_per_frame
     m = masks.unsqueeze(1).expand(masks.shape[0], batch, masks.shape[1])
-    P = torch.func.vmap(jtjv)(m).reshape(D, stride, batch, F, D)  # [d, c, b, f_row, d_row]
+    P = many(m).reshape(D, stride, batch, F, D)  # [d, c, b, f_row, d_row]
     P = P.permute(1, 2, 3, 4, 0)  # [c, b, f_row, d_row, d_col]
     blocks = []
     for k in range(bandwidth + 1):

@@ -12,7 +12,10 @@ the results back, nothing syncs with the host (``_refine_core``).
 Each stage is a function of its own (``ik_init_batch``, ``lm_stage``,
 ``floor_stage``), so a caller can time them apart. The LM stages solve their
 inner systems by PCG (``lm_solver="pcg"``, the default) or by the banded
-direct solve of ``kinematics/banded.py`` (``"banded"``). With a ``mesh``
+direct solve of ``kinematics/banded.py`` (``"banded"``). On CUDA their
+JᵀJ·v products, and the PCG's diagonal, are the trajectory residual's own
+kernel (``kinematics/jtjv.py``), which ``lm_stage`` hands ``lm_solve``; on
+the CPU they are autograd's. With a ``mesh``
 (``parallel.mesh``) each rank solves its contiguous slice of the padded
 batch and the results are gathered once at the end.
 """
@@ -32,6 +35,7 @@ from ..utils.device import resolve_device
 from ..utils.profiling import span
 from . import banded as banded_lib
 from . import floor as floor_lib
+from . import jtjv as jtjv_lib
 from . import trajectory as traj_lib
 from .ik import IKConfig, IKLayout, _solve as ik_solve
 from .lm import LMConfig, frame_coloring_masks, lm_solve
@@ -53,7 +57,8 @@ LM_SOLVERS = ("pcg", "banded")
 class BatchConsts:
     """Device constants of a batch shape: the residual layout, the IK layout,
     the coloring masks of the LM solver (the diagonal's for "pcg", the
-    bands' for "banded") and the gathers of targets and feet. Built before a
+    bands' for "banded"), the gathers of targets and feet, and on CUDA the
+    residual's JᵀJ·v kernel (``product``; None on the CPU). Built before a
     solve (they copy from the host); a ``GraphCache`` keeps one per shape and
     solver."""
 
@@ -74,6 +79,8 @@ class BatchConsts:
         self.feet_cols = torch.as_tensor(_S2D[defs.COMBINED_SKEL_FEET_IDX], device=device)
         self.xz = torch.as_tensor([0, 2], device=device)
         self.smooth = torch.as_tensor(defs.COMBINED_SMOOTH_WEIGHTS, dtype=dtype, device=device)
+        self.product = (jtjv_lib.TrajectoryProduct(self.layout)
+                        if torch.device(device).type == "cuda" else None)
 
 
 def batch_consts(parents, num_frames: int, ik_cfg: IKConfig, device, dtype,
@@ -147,12 +154,15 @@ def make_data(arrs, consts: BatchConsts, vc, normal, point) -> TrajectoryData:
 def lm_stage(x0, data: TrajectoryData, w: TermWeights, consts: BatchConsts, lm_cfg: LMConfig,
              graphs: Optional[GraphCache] = None) -> torch.Tensor:
     """One LM stage over the batch: PCG with the exact coloring diagonal, or
-    the banded direct solve (``consts.lm_solver``)."""
+    the banded direct solve (``consts.lm_solver``). The products are
+    ``consts.product``'s, the kernel of this residual, where the constants
+    live on CUDA, and autograd's elsewhere."""
     if consts.lm_solver == "banded":
         x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, graphs=graphs,
-                        banded_masks=consts.masks)
+                        banded_masks=consts.masks, product=consts.product)
     else:
-        x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, consts.masks, graphs)
+        x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, consts.masks, graphs,
+                        product=consts.product)
     return x
 
 

@@ -36,6 +36,16 @@ laid out frame-major.
 ``graphs=`` (a ``utils.cuda_graph.GraphCache``) replays each LM step as a
 captured CUDA graph: the same kernels as the eager step, launched by one
 call, one capture per mode and shape.
+
+``product=`` replaces the double vjp by a caller's own JᵀJ·v: a supplier
+that knows the residual it is handed (``kinematics/jtjv.py``'s
+``TrajectoryProduct``, the kernel of the trajectory residual, which
+``kinematics.batch`` passes on CUDA). ``product(x, *args)`` returns the
+linearization at x: called on (B, n) tangents, with ``many`` for (M, B, n)
+and ``diag(masks)`` for the coloring diagonal. The gradient g = Jᵀr and the
+cost stay autograd's. Without it (the default: physics, ``parallel``, the
+CPU) the product is the double vjp. Each solve counts its path on the host,
+``lm.jtjv.autograd`` or ``lm.jtjv.<product.path>`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ import torch
 
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import resolve_device
+from ..utils.profiling import count
 from . import banded as banded_lib
 
 
@@ -112,29 +123,40 @@ def _half_sq(r: torch.Tensor) -> torch.Tensor:
 
 
 def lm_step(res: Callable, x, lam, c, cfg: LMConfig, diag_masks: Optional[torch.Tensor] = None,
-            banded_masks: Optional[torch.Tensor] = None):
+            banded_masks: Optional[torch.Tensor] = None, product: Optional[Callable] = None):
     """One LM step for every problem: (x, λ, cost) → (x, λ, cost). The inner
     solve is PCG, with the coloring diagonal of ``diag_masks`` or λI
     damping, or, given ``banded_masks`` (``banded.coloring_masks(F, D)``,
-    (5·D, F·D)), the banded direct solve on the blocks they extract."""
+    (5·D, F·D)), the banded direct solve on the blocks they extract.
+    ``product(x)``, where given, is JᵀJ at x (a ``jtjv.Linearization``) in
+    place of the double vjp."""
     r, vjp_fn = torch.func.vjp(res, x)
     g = vjp_fn(r)[0]
-    _, lin = torch.func.vjp(lambda cot: vjp_fn(cot)[0], torch.zeros_like(r))
+    if product is None:
+        _, lin = torch.func.vjp(lambda cot: vjp_fn(cot)[0], torch.zeros_like(r))
 
-    def jtjv(v):
-        return vjp_fn(lin(v)[0])[0]
+        def jtjv(v):
+            return vjp_fn(lin(v)[0])[0]
+
+        many = torch.func.vmap(jtjv)
+
+        def coloring_diag(masks):
+            m = masks.unsqueeze(1).expand((masks.shape[0],) + x.shape)
+            return torch.func.vmap(lambda mk: mk * jtjv(mk))(m).sum(0)
+    else:
+        jtjv = product(x)
+        many, coloring_diag = jtjv.many, jtjv.diag
 
     if banded_masks is not None:
         D = banded_masks.shape[0] // 5  # (5·D, F·D): bandwidth 2, stride 5
         F, B = banded_masks.shape[1] // D, x.shape[0]
-        U0, L1, L2 = banded_lib.banded_jtj(jtjv, banded_masks, B, F, D)
+        U0, L1, L2 = banded_lib.banded_jtj(many, banded_masks, B, F, D)
         scale_f = torch.clamp(torch.diagonal(U0, dim1=-2, dim2=-1), min=cfg.diag_floor)
         A0 = U0 + lam.unsqueeze(-1).unsqueeze(-1) * torch.diag_embed(scale_f)
         delta = banded_lib.block_penta_solve(A0, L1, L2, (-g).reshape(B, F, D)).reshape(B, -1)
     else:
         if diag_masks is not None:
-            m = diag_masks.unsqueeze(1).expand((diag_masks.shape[0],) + x.shape)
-            diag = torch.func.vmap(lambda mk: mk * jtjv(mk))(m).sum(0)
+            diag = coloring_diag(diag_masks)
             scale = torch.clamp(diag, min=cfg.diag_floor)
             inv_diag = 1.0 / (scale * (1.0 + lam))
         else:
@@ -182,18 +204,26 @@ def _tensor_floats(obj, like: torch.Tensor):
     return obj
 
 
+def _bound(product: Optional[Callable], args) -> Optional[Callable]:
+    """``product`` with the solve's arguments: x → JᵀJ at x."""
+    return None if product is None else (lambda x: product(x, *args))
+
+
 def lm_solve(residual_fn: Callable, x0: torch.Tensor, args, cfg: LMConfig,
              diag_masks: Optional[torch.Tensor] = None, graphs: Optional[GraphCache] = None,
-             banded_masks: Optional[torch.Tensor] = None):
+             banded_masks: Optional[torch.Tensor] = None, product: Optional[Callable] = None):
     """Minimize ½‖residual_fn(x, *args)[b]‖² from x0[b] for every problem b.
 
     x0: (B, n); ``residual_fn`` returns (B, R). ``diag_masks`` (from
     ``frame_coloring_masks``) give the exact Marquardt scaling and Jacobi
     preconditioner; without them the damping is λI. ``banded_masks``
     (``banded.coloring_masks(F, D)``) switch the inner solve to the banded
-    direct solve (``diag_masks`` is then ignored). Returns (x (B, n), final
-    cost (B,)).
+    direct solve (``diag_masks`` is then ignored). ``product``, a supplier
+    of JᵀJ·v for ``residual_fn`` (``product(x, *args)``; see the module's
+    docstring), replaces the double vjp. Returns (x (B, n), final cost
+    (B,)).
     """
+    count("lm.jtjv.autograd" if product is None else f"lm.jtjv.{product.path}")
     if banded_masks is not None:
         diag_masks = None
     args = _tensor_floats(tuple(args), x0)
@@ -204,7 +234,7 @@ def lm_solve(residual_fn: Callable, x0: torch.Tensor, args, cfg: LMConfig,
         x = x0
         for _ in range(cfg.max_iters):
             x, lam, c = lm_step(lambda v: residual_fn(v, *args), x, lam, c, cfg, diag_masks,
-                                banded_masks)
+                                banded_masks, _bound(product, args))
         return x, c.squeeze(-1)
 
     leaves: list = []
@@ -212,12 +242,13 @@ def lm_solve(residual_fn: Callable, x0: torch.Tensor, args, cfg: LMConfig,
 
     def step(state, static):
         a, masks, bmasks = _unflatten(spec, iter(static))
-        return lm_step(lambda v: residual_fn(v, *a), *state, cfg, masks, bmasks)
+        return lm_step(lambda v: residual_fn(v, *a), *state, cfg, masks, bmasks,
+                       _bound(product, a))
 
     # the step's kernels do not depend on the step count: one capture
     # serves every max_iters
     mode = "banded" if banded_masks is not None else "pcg" if diag_masks is not None else "lambda"
-    key = ("lm_step", mode, residual_fn, dataclasses.replace(cfg, max_iters=0),
+    key = ("lm_step", mode, residual_fn, product, dataclasses.replace(cfg, max_iters=0),
            repr(spec), tuple(x0.shape),
            tuple((t.shape, t.dtype, t.device) for t in leaves))
     x, lam, c = graphs.run(key, step, (x0, lam, c), leaves, cfg.max_iters)

@@ -63,6 +63,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"chd_fused_mlp_{name}")
         fn.argtypes = args
         fn.restype = i
+    lib.chd_traj_jtjv.argtypes = [i, i, ctypes.POINTER(ll), ctypes.POINTER(ll), p]
+    lib.chd_traj_jtjv.restype = i
     lib.chd_cuda_error_string.argtypes = [i]
     lib.chd_cuda_error_string.restype = ctypes.c_char_p
 

@@ -98,13 +98,17 @@ PyTorch, replayed as CUDA graphs):
     of bench.py's recipe on the golden's skeleton at the default budget
     (IK 200 with 64 CG iterations, LM 40:80 twice). Seconds per
     ``optimize_trajectory_batch`` call with CUDA graphs, the first (which
-    captures) and the second, and sequences/hour; the same graphs stage by
-    stage (IK, LM 1, floor, LM 2) inside
+    captures) and the second, and sequences/hour; the JᵀJ·v kernel's
+    launches by its wrapper's counter, zeroed before each call (the
+    capturing call 2 x 80 products and 2 diagonals, the replayed call none
+    from the host), and 2 kernel solves each by ``lm.jtjv.kernel``; the
+    same graphs stage by stage (IK, LM 1, floor, LM 2) inside
     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), timed by
     CUDA events, equal to the call's results; the IK stage and 3 LM steps
-    eager and replayed, bitwise equal, no host sync; one eager LM step
-    under ``torch.profiler`` (launches, kernels, device busy, idle share,
-    largest items, peak memory). Then a small ragged batch (16 and 12
+    eager and replayed, bitwise equal, no host sync; one eager LM step on
+    the kernel under ``torch.profiler`` (launches, kernels, 80
+    ``product_kernel`` and one ``diag_kernel`` events, device busy, idle
+    share, largest items, peak memory). Then a small ragged batch (16 and 12
     frames), card against CPU: float64 with IK 10 LU and LM 5:15 end to
     end (joints within 1e-5 cm, pruned contacts equal, floor normals cos
     >= 0.9999); float32 with IK 200 LU and LM 5:15 stage by stage, each
@@ -117,7 +121,11 @@ PyTorch, replayed as CUDA graphs):
 16. the ``kinematic`` CLI on the card on a synthetic 12-frame video dir,
     against the port's CPU run of the same dir: the three files written,
     the same contacts, floor normals cos >= 0.9999, BVH joints within
-    0.05 cm.
+    the larger of 0.05 cm and 3 x the CPU's own spread under one-ulp
+    changes of the 3D inputs; on the card the same CLI with autograd's
+    product must pass that gate, and with a planted wrong product (the
+    kernel's without its projection or its acceleration block) must fail
+    it.
 
 Retargeting, the staged physics solve and the whole pipeline (no kernel of
 their own either: collocation, SRBD and durations are plain PyTorch, the LM
@@ -150,9 +158,11 @@ steps replayed as CUDA graphs):
 20. the ``run`` CLI on the card on a synthetic 12-frame video dir
     (kinematic, retargeting to the 67-joint ybot template of
     ``tests/fixtures/prepare_input/ybot``, physics at small budgets) and
-    on the CPU: every artifact of the pipeline's layout, a success log
-    that parses, three 67-joint BVHs, solutions and BVH joints within
-    ``RUN_SOL_MAX_D`` m and ``RUN_BVH_MAX_D`` cm of the CPU's.
+    its retargeting and physics stages on the CPU from the card's
+    kinematic results ([16] holds the kinematic stage): every artifact of
+    the pipeline's layout, a success log that parses, three 67-joint BVHs,
+    solutions and BVH joints within ``RUN_SOL_MAX_D`` m and
+    ``RUN_BVH_MAX_D`` cm of the CPU's.
 
 The banded LM solve, the kernel's precision modes and the rest of the
 library:
@@ -242,8 +252,19 @@ The parallel layer (``chd_tpu_torch.parallel``):
     against the unsharded one (within ``LONG_PROBE_REL``), and its whole
     refinement at a cut budget (seconds a stage, peak memory).
 
+The kinematic LM's JᵀJ·v kernel (``csrc/traj_jtjv.cu``):
+
+26. at [15]'s 16 x 100 frames in float32 and float64, product and
+    diagonal, against autograd's double vjp in float64 at the same point
+    (relative error of the output's norm within 1e-5 in float32, 1e-12 in
+    float64; a product without its projection block must fail it), a
+    second launch bitwise equal; a launch's time by CUDA events over a
+    graph of 50, its bound from the bytes it moves and its FLOP, and the
+    double vjp's time eager and replayed as a graph.
+
 Then it prints one JSON line on the kernels (the fused-MLP kernel in each of
-its four modes), the card's name and power limit, and, last,
+its four modes, the JᵀJ·v kernel in each mode and type with [15]'s launch
+counts), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line, and so does a machine without CUDA.
 """
@@ -352,6 +373,18 @@ LONG_F, LONG_SHARDS = 1800, 4
 LONG_IK, LONG_LM = 50, (4, 40)
 LONG_PROBE_REL = 1e-4
 SHARD_GOLDEN_LM = (20, 60)
+# [26]: the JᵀJ·v kernel at [15]'s shapes against autograd's double vjp in
+# float64 at the same point, on the norm of the whole output: float32 rounds
+# ~6e-8 a step through a tree seven levels deep (read ~2e-7), and a block
+# left out or a frame of a tile's halo dropped moves it by far more
+JTJV_REL = {"float32": 1e-5, "float64": 1e-12}
+JTJV_REPS = 50                   # launches in a timed graph
+# FLOP a frame, counted from csrc/traj_jtjv.cu: a product's FK at x, its
+# tangent and transpose through the tree and the seven residual blocks; the
+# diagonal's 87 one-dof tangents through each subtree and the 28 slots'
+# squared tangents. H100 SXM float64 (non-tensor) peak at 700 W
+JTJV_FRAME_FLOP = {"product": 26e3, "diag": 0.21e6}
+F64_PEAK = 34e12
 
 
 def fail(msg: str) -> None:
@@ -1294,17 +1327,16 @@ def print_top_items(prof: dict, what=("device",)) -> None:
 def kinematic_phases(torch, dev, smi: str) -> dict:
     """Phases [13]-[16]: the kinematic stage on the card. Returns [15]'s PCG
     readings, which [21] sets beside the banded solve's."""
-    from chd_tpu_torch.core import bvh, fk, quat
+    from chd_tpu_torch.core import fk, quat
     from chd_tpu_torch.kinematics import batch as batch_lib
     from chd_tpu_torch.kinematics import ik as ik_lib
+    from chd_tpu_torch.kinematics import jtjv as jtjv_lib
     from chd_tpu_torch.kinematics import lm as lm_lib
     from chd_tpu_torch.kinematics import trajectory as traj_lib
     from chd_tpu_torch.kinematics.ik import IKConfig
     from chd_tpu_torch.kinematics.lm import LMConfig
     from chd_tpu_torch.kinematics.residuals import Layout, data_order_positions
-    from chd_tpu_torch.pipeline import cli
-    from chd_tpu_torch.pipeline.run import run_kinematic_stage
-    from chd_tpu_torch.utils.config import PipelineConfig
+    from chd_tpu_torch.utils import profiling
     from chd_tpu_torch.utils.cuda_graph import GraphCache
 
     g = np.load(TRAJ_GOLDEN)
@@ -1380,11 +1412,30 @@ def kinematic_phases(torch, dev, smi: str) -> dict:
         return batch_lib.optimize_trajectory_batch(problems, skel, ik_iterations=ik_cfg.iterations,
                                                    lm_cfg=lm_cfg, graphs=graphs)
 
-    t_first, _ = wall(call)
-    t_call, res15 = wall(call)
+    def counted(fn):
+        """(seconds, result, the JᵀJ·v kernel's launches by mode, kernel
+        solves) of fn(), the wrapper's and lm_solve's counts zeroed before."""
+        for mode in jtjv_lib.MODES:
+            jtjv_lib.traj_jtjv.launches[mode] = 0
+        solves = profiling.snapshot()["counters"].get("lm.jtjv.kernel", 0)
+        t, out = wall(fn)
+        return (t, out, dict(jtjv_lib.traj_jtjv.launches),
+                profiling.snapshot()["counters"].get("lm.jtjv.kernel", 0) - solves)
+
+    t_first, _, launch_first, solves_first = counted(call)
+    t_call, res15, launch_call, solves_call = counted(call)
     print(f"    optimize_trajectory_batch with CUDA graphs: first call {t_first:.3f} s "
           f"({graphs.captures} captures), then {t_call:.3f} s = "
           f"{KIN_B / t_call * 3600:.0f} sequences/hour (host prep and copies included)")
+    # the one LM step captured serves both stages: the capturing call
+    # launches its warm-up's and its capture's products, the replays none
+    want_first = {"product": 2 * lm_cfg.cg_iters, "diag": 2}
+    print(f"    the JtJ.v kernel's launches by the wrapper: capturing call {launch_first}, "
+          f"{solves_first} kernel solves (want {want_first}, 2); replayed call {launch_call}, "
+          f"{solves_call} kernel solves (the graphs hold them)")
+    if (launch_first != want_first or solves_first != 2
+            or any(launch_call.values()) or solves_call != 2):
+        fail("[15] the LM solves did not take the JtJ.v kernel as counted")
     finite = all(np.isfinite(r.pose3d).all() and np.isfinite(r.anim.rotations).all()
                  for r in res15)
     if not finite or len(res15) != KIN_B or res15[0].pose3d.shape != (KIN_F, 28, 3):
@@ -1447,20 +1498,27 @@ def kinematic_phases(torch, dev, smi: str) -> dict:
     c0 = lm_lib._half_sq(res_fn(x0))
 
     def one_step():
-        return lm_lib.lm_step(res_fn, x0, lam, c0, lm_cfg, consts.masks)
+        return lm_lib.lm_step(res_fn, x0, lam, c0, lm_cfg, consts.masks,
+                              product=lambda z: consts.product(z, *args))
 
     st = profiled_step(one_step)
-    print(f"    one eager LM step ({lm_cfg.cg_iters} CG iterations, the {3 * (3 + 3 * J)}-mask "
-          f"diagonal pass): {st['t_step'] * 1e3:.1f} ms, {st['peak_gib']:.2f} GiB above the "
+    step_launches = {m: sum(e.count for e in st["device_items"] if f"{m}_kernel" in e.key)
+                     for m in jtjv_lib.MODES}
+    print(f"    one eager LM step ({lm_cfg.cg_iters} CG iterations and the diagonal on the "
+          f"JtJ.v kernel): {st['t_step'] * 1e3:.1f} ms, {st['peak_gib']:.2f} GiB above the "
           f"inputs at peak; profiled: wall {st['t_prof'] * 1e3:.1f} ms, {st['launches']} "
-          f"launches, {st['kernels']} device kernels "
-          f"(~{st['kernels'] / (lm_cfg.cg_iters + 2):.0f} per JtJ.v product), device busy "
-          f"{st['busy'] * 1e3:.1f} ms, idle share {st['idle']:.3f}")
+          f"launches, {st['kernels']} device kernels, of them the kernel's {step_launches}, "
+          f"device busy {st['busy'] * 1e3:.1f} ms, idle share {st['idle']:.3f}")
     print_top_items(st, ("host", "device"))
+    if step_launches != {"product": lm_cfg.cg_iters, "diag": 1}:
+        fail(f"[15] the LM step ran the JtJ.v kernel {step_launches} times")
     pcg15 = {"t_first": t_first, "t_call": t_call, "stage_ms": graph_ms,
              "eager_step_ms": eager_ms[1] / EAGER_LM_STEPS,
              "replayed_step_ms": rep_ms[1] / EAGER_LM_STEPS, "step": st,
-             "stage2_cost": pcg_cost2}
+             "stage2_cost": pcg_cost2,
+             "jtjv_launches": {"optimize_trajectory_batch": launch_first,
+                               "optimize_trajectory_batch, replayed": launch_call,
+                               "lm_step": step_launches}}
 
     # a small ragged batch, card against the port on the CPU
     rng = np.random.default_rng(17)
@@ -1561,44 +1619,267 @@ def kinematic_phases(torch, dev, smi: str) -> dict:
     end_to_end("(16 and 12 frames, IK 10 CG, LM 5:15, float32)", f32, "cg")
 
     # -- 16. the kinematic CLI on the card ----------------------------------
+    kinematic_cli_phase(torch, dev, skel)
+    return pcg15
+
+
+def kinematic_cli_phase(torch, dev, skel) -> None:
+    """Phase [16]: the ``kinematic`` CLI on the card on a synthetic 12-frame
+    video dir against the port's CPU run of the same dir. Float32 runs part
+    by roundings that unconverged CG steps amplify, so the joints are held
+    to ``CLI_MAX_D`` cm or ``SPREAD_X`` times the CPU's own spread under
+    one-ulp changes of the 3D inputs, whichever is larger ([15]'s method for
+    its float32 end-to-end runs). Controls on the card: the autograd
+    product (no kernel) must pass that gate, and each planted wrong
+    product, the kernel's without its projection block and without its
+    acceleration block, must fail it."""
+    from chd_tpu_torch.core import bvh, fk
+    from chd_tpu_torch.kinematics import batch as batch_lib
+    from chd_tpu_torch.kinematics import jtjv as jtjv_lib
+    from chd_tpu_torch.pipeline import cli
+    from chd_tpu_torch.pipeline.run import run_kinematic_stage
+    from chd_tpu_torch.utils.config import PipelineConfig
+
+    J = len(skel.parents)
+    budget = {"kinematic.ik_iterations": 20, "kinematic.lm_iters": 8, "kinematic.cg_iters": 30}
+    want_files = ["final_test.bvh", "floor_out.txt", "foot_contacts.npy"]
+
+    class Planted(jtjv_lib.TrajectoryProduct):
+        """The kernel's product with the weight ``term`` zeroed: a product
+        that leaves out one residual block (the gradient and the cost keep
+        it)."""
+
+        def __init__(self, layout, term):
+            super().__init__(layout)
+            self.term = term
+
+        def __call__(self, x, data, w):
+            return jtjv_lib.Linearization(self, x, data, w._replace(
+                **{self.term: torch.zeros_like(getattr(w, self.term))}))
+
+    init = batch_lib.BatchConsts.__init__
+    prepare = batch_lib.prepare_batch_arrays
+
     with tempfile.TemporaryDirectory() as tmp:
         skel_bvh = os.path.join(tmp, "combined_body_25.bvh")
         bvh.save(skel_bvh, skel.slice_frames(0, 1), [f"joint_{j}" for j in range(J)])
-        budget = {"kinematic.ik_iterations": 20, "kinematic.lm_iters": 8,
-                  "kinematic.cg_iters": 30}
-        card_dir = synth_video_dir(os.path.join(tmp, "card"), skel)
-        cpu_dir = synth_video_dir(os.path.join(tmp, "cpu"), skel)
-        t16 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(["kinematic", "--video-dir", card_dir, "--skel-path", skel_bvh,
-                           "--device", "cuda", "--set", *[f"{k}={v}" for k, v in budget.items()]])
-        t16 = time.perf_counter() - t16
-        run_kinematic_stage(cpu_dir, PipelineConfig().override(
-            **{"kinematic.skel_path": skel_bvh, **budget}), device="cpu")
-        outs = []
-        for d in (card_dir, cpu_dir):
-            kd = os.path.join(d, "kinematic_results")
+
+        def run(device, ulps=0, product=None):
+            """(rc, seconds, files, BVH joints (cm), floor normal, floor
+            point, contacts) of one run of the dir on ``device``: on the card
+            through the CLI, its products, where ``product`` is given, the
+            supplier ``product(layout)`` (None: autograd's) in the kernel's
+            place; on the CPU through ``run_kinematic_stage``, the 3D inputs
+            moved by ``ulps`` float32 roundings."""
+            root = tempfile.mkdtemp(dir=tmp)
+            vd = synth_video_dir(root, skel)
+
+            def consts(self, *a, **k):
+                init(self, *a, **k)
+                if product is not None and self.product is not None:
+                    self.product = product(self.layout)
+
+            def moved(problems, *a, **k):
+                eps = np.finfo(np.float32).eps
+                return prepare([dict(p, pose3d=p["pose3d"] * (1 + ulps * eps))
+                                for p in problems], *a, **k)
+
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    mock.patch.object(batch_lib.BatchConsts, "__init__", consts), \
+                    mock.patch.object(batch_lib, "prepare_batch_arrays", moved):
+                if device == "cpu":
+                    run_kinematic_stage(vd, PipelineConfig().override(
+                        **{"kinematic.skel_path": skel_bvh, **budget}), device="cpu")
+                    rc = 0
+                else:
+                    rc = cli.main(["kinematic", "--video-dir", vd, "--skel-path", skel_bvh,
+                                   "--device", device, "--set",
+                                   *[f"{k}={v}" for k, v in budget.items()]])
+            t = time.perf_counter() - t
+            kd = os.path.join(vd, "kinematic_results")
             anim, _, _ = bvh.load(os.path.join(kd, "final_test.bvh"))
             with open(os.path.join(kd, "floor_out.txt")) as fh:
-                normal = np.array([float(x) for x in fh.readline().split()])
-                point = np.array([float(x) for x in fh.readline().split()])
-            outs.append((sorted(os.listdir(kd)), anim, normal, point,
-                         np.load(os.path.join(kd, "foot_contacts.npy"))))
-        (files, anim_a, n_a, p_a, c_a), (_, anim_b, n_b, p_b, c_b) = outs
-        ja, jb = (fk.positions_global(torch.from_numpy(a.rotations), torch.from_numpy(a.positions),
-                                      a.parents).numpy() for a in (anim_a, anim_b))
-        d = float(np.abs(ja - jb).max())
-        cos = float(n_a @ n_b)
-        eq = bool(np.array_equal(c_a, c_b))
+                normal = np.array([float(v) for v in fh.readline().split()])
+                point = np.array([float(v) for v in fh.readline().split()])
+            joints = fk.positions_global(torch.from_numpy(anim.rotations),
+                                         torch.from_numpy(anim.positions), anim.parents).numpy()
+            return (rc, t, sorted(os.listdir(kd)), joints, normal, point,
+                    np.load(os.path.join(kd, "foot_contacts.npy")))
+
+        card = dev.type
+        host = run("cpu")
+        spread = max(float(np.abs(run("cpu", u)[3] - host[3]).max()) for u in SPREAD_ULPS)
+        bound = max(CLI_MAX_D, SPREAD_X * spread)
+
+        def against_cpu(out):
+            """(joints max |d| cm, contacts equal, floor cos, point max |d|)."""
+            return (float(np.abs(out[3] - host[3]).max()), bool(np.array_equal(out[6], host[6])),
+                    float(out[4] @ host[4]), float(np.abs(out[5] - host[5]).max()))
+
+        main = run(card)
+        d, eq, cos, dp = against_cpu(main)
         print(f"[16] kinematic CLI on the card (synthetic 12-frame video dir, IK 20, LM 8:30): rc "
-              f"{rc}, {t16:.2f} s, wrote {files}; against the port's CPU run: BVH joints max|d| "
-              f"{d:.4f} cm, contacts equal {eq}, floor cos {cos:.8f}, point |d| "
-              f"{float(np.abs(p_a - p_b).max()):.4f}")
-        want_files = ["final_test.bvh", "floor_out.txt", "foot_contacts.npy"]
-        if rc != 0 or files != want_files or not (d <= CLI_MAX_D and eq
-                                                   and cos >= SMALL_COS_MIN):
+              f"{main[0]}, {main[1]:.2f} s, wrote {main[2]}; against the port's CPU run: BVH "
+              f"joints max|d| {d:.4f} cm (<= {bound:.4f}: the larger of {CLI_MAX_D} and "
+              f"{SPREAD_X} x the CPU's one-ulp spread {spread:.4f}), contacts equal {eq}, floor "
+              f"cos {cos:.8f}, point |d| {dp:.4f}")
+        if main[0] != 0 or main[2] != want_files or not (d <= bound and eq
+                                                         and cos >= SMALL_COS_MIN):
             fail("[16] the kinematic CLI on the card disagrees with the CPU or missed a file")
-    return pcg15
+        controls = {"the autograd product": lambda lay: None,
+                    "the product without its projection block": (
+                        lambda lay: Planted(lay, "proj")),
+                    "the product without its acceleration block": (
+                        lambda lay: Planted(lay, "smooth_acc"))}
+        read = {}
+        for name, product in controls.items():
+            read[name] = against_cpu(run(card, product=product))[0]
+            print(f"    control, {name} on the card: BVH joints max|d| {read[name]:.4f} cm")
+        if not read["the autograd product"] <= bound:
+            fail("[16] the autograd product on the card fails the CLI's gate")
+        missed = [n for n, d in read.items() if "without" in n and not d > bound]
+        if missed:
+            fail(f"[16] the CLI's gate does not tell {missed} from the kernel")
+
+
+def jtjv_phase(torch, dev, smi: str, launches: dict) -> list:
+    """Phase [26]: the kinematic LM's JᵀJ·v kernel (``csrc/traj_jtjv.cu``)
+    at [15]'s 16 x 100 frames in float32 and float64, product and diagonal,
+    each against autograd's double vjp in float64 at the same point within
+    ``JTJV_REL`` (a product without its projection block must fail that),
+    bitwise equal on a second launch; its time by CUDA events over a graph
+    of ``JTJV_REPS`` launches, its bound from the bytes it moves and the
+    FLOP it does, the double vjp's time eager and replayed as a graph.
+    ``launches`` are [15]'s counts. Returns the kernel's entries of the
+    kernels line."""
+    from chd_tpu_torch.kinematics import batch as batch_lib
+    from chd_tpu_torch.kinematics import lm as lm_lib
+    from chd_tpu_torch.kinematics import trajectory as traj_lib
+    from chd_tpu_torch.kinematics.ik import IKConfig
+
+    skel = golden_skeleton(np.load(TRAJ_GOLDEN))
+    rng = np.random.default_rng(0)
+    problems = [kin_problem(rng, skel, KIN_F) for _ in range(KIN_B)]  # [15]'s batch
+
+    def setup(dtype):
+        """(x, data, weights, consts) at the SMPL initialization, STAGE2's
+        weights (floor on), contacts on with p 0.5."""
+        arrs, F = batch_lib.prepare_batch_arrays(problems, skel, device=dev, dtype=dtype)
+        consts = batch_lib.batch_consts(skel.parents, F, IKConfig(), dev, dtype)
+        x = batch_lib.initial_x(arrs["rot0"], arrs["pos0"]).contiguous()
+        normal = torch.tensor([0.02, 0.999, -0.03], dtype=dtype, device=dev).expand(KIN_B, 3)
+        point = torch.tensor([0.0, -95.0, 380.0], dtype=dtype, device=dev).expand(KIN_B, 3)
+        data = batch_lib.make_data(arrs, consts, arrs["vc"], normal, point)
+        return x, data, lm_lib._tensor_floats(traj_lib.STAGE2, x), consts
+
+    def autograd(x, data, w, consts):
+        """JᵀJ·v by the double vjp, as lm_step forms it without a product."""
+        r, vjp_fn = torch.func.vjp(lambda z: consts.layout.residual(z, data, w), x)
+        _, lin = torch.func.vjp(lambda c: vjp_fn(c)[0], torch.zeros_like(r))
+        return lambda v: vjp_fn(lin(v)[0])[0]
+
+    def coloring(fn, masks, like):
+        m = masks.unsqueeze(1).expand((masks.shape[0],) + like.shape)
+        return torch.func.vmap(lambda mk: mk * fn(mk))(m).sum(0)
+
+    # the double vjp's linearization, its calls and its graph on one
+    # stream: autograd runs a backward op on its forward op's stream, a
+    # capture takes no work from the legacy stream, and a vmapped backward
+    # cannot sync a batched tensor across streams
+    side = torch.cuda.Stream()
+
+    def on_side(fn):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = fn()
+        torch.cuda.current_stream().wait_stream(side)
+        return out
+
+    def graph_ms(fn, reps):
+        """Milliseconds a call of fn, by CUDA events over replays of a
+        graph of ``reps`` calls captured on ``side`` (the median of 5)."""
+        on_side(fn)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        times = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            graph.replay()
+            ev[1].record()
+            times.append(stage_ms(ev)[0] / reps)
+        return statistics.median(times)
+
+    def rel(got, want):
+        return float((got.double() - want).norm() / want.norm())
+
+    x64, data64, w64, consts64 = setup(torch.float64)
+    v64 = torch.randn(x64.shape, dtype=torch.float64, device=dev,
+                      generator=torch.Generator(dev).manual_seed(26))
+    print(f"[26] the JtJ.v kernel at [15]'s shapes ({KIN_B} x {KIN_F} frames, "
+          f"{len(skel.parents)} joints, STAGE2's weights), against autograd's double vjp in "
+          f"float64 at the same point (relative error of the whole output's norm); {smi}")
+    entries = []
+    for dtype, peak in ((torch.float32, F32_PEAK), (torch.float64, F64_PEAK)):
+        name = str(dtype).split(".")[-1]
+        x, data, w, consts = setup(dtype)
+        v = v64.to(dtype)
+        lin = consts.product(x, data, w)
+        # the float64 reference at this dtype's point
+        ref = autograd(x.double(), type(data)(*(None if t is None else t.double() for t in data)),
+                       type(w)(*(t.double() for t in w)), consts64)
+        fn = on_side(lambda: autograd(x, data, w, consts))
+        masks = consts.masks
+        runs = {"product": (lambda: lin(v), lambda: ref(v.double()), lambda: fn(v)),
+                "diag": (lambda: lin.diag(masks), lambda: coloring(ref, masks.double(), x),
+                         lambda: coloring(fn, masks, x))}
+        for mode, (kernel, want_fn, plain) in runs.items():
+            got, want = kernel(), want_fn()
+            err, again = rel(got, want), kernel()
+            max_abs = float((got.double() - want).abs().max())
+            ms = graph_ms(kernel, JTJV_REPS)
+            plain_ms = wall(lambda: on_side(lambda: [plain() for _ in range(3)]))[0] / 3 * 1e3
+            library_ms = graph_ms(plain, 1)
+            n_bytes = sum(t.numel() * t.element_size() for t in (
+                x, data.proj_weights, data.data_weights, data.smooth_weights,
+                data.vel_constraints, data.offsets, got) + ((v,) if mode == "product" else ())
+                + (() if data.frame_mask is None else (data.frame_mask,)))
+            flop = JTJV_FRAME_FLOP[mode] * KIN_B * KIN_F
+            by_bytes, by_flop = n_bytes / HBM_RATE * 1e3, flop / peak * 1e3
+            bound_ms = max(by_bytes, by_flop)
+            bound_by = "bytes" if by_bytes >= by_flop else "operations"
+            print(f"    {mode}, {name}: relative error {err:.3e} (<= {JTJV_REL[name]}), max|d| "
+                  f"{max_abs:.3e}; a second launch bitwise equal: {torch.equal(got, again)}; "
+                  f"{ms * 1e3:.1f} us a launch (a graph of {JTJV_REPS}); bound {bound_ms * 1e3:.2f} "
+                  f"us ({bound_by}: {n_bytes / 1e6:.3f} MB, {flop / 1e6:.1f} MFLOP), "
+                  f"{bound_ms / ms:.3f} of it reached; the double vjp {plain_ms:.2f} ms eager, "
+                  f"{library_ms:.3f} ms replayed as a graph")
+            if not (err <= JTJV_REL[name] and torch.equal(got, again)):
+                fail(f"[26] the JtJ.v kernel's {mode} in {name} disagrees with autograd's")
+            entries.append({
+                "name": "traj_jtjv", "mode": f"{mode}.{name}", "route": "cuda",
+                "source": "chd_tpu_torch/csrc/traj_jtjv.cu",
+                "replaces": "chd_tpu/kinematics/lm.py:133 (jax.linearize, its transpose)",
+                "launches": launches["optimize_trajectory_batch"][mode],
+                "launches_by_path": {k: c[mode] for k, c in launches.items()},
+                "max_abs_err": max_abs, "rel_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,  # torch.func's double vjp as a CUDA graph
+            })
+        if dtype == torch.float32:
+            lin_bad = consts.product(x, data, w._replace(proj=torch.zeros_like(w.proj)))
+            bad = rel(lin_bad(v), ref(v.double()))
+            print(f"    control: the product without its projection block, float32: relative "
+                  f"error {bad:.3e} (must exceed {JTJV_REL[name]})")
+            if not bad > JTJV_REL[name]:
+                fail("[26] the kernel's gate does not tell a product without its projection "
+                     "block")
+    return entries
 
 
 def banded_phase(torch, dev, smi: str, pcg: dict) -> None:
@@ -1712,7 +1993,8 @@ def banded_phase(torch, dev, smi: str, pcg: dict) -> None:
     c0 = lm_lib._half_sq(res_fn(x0))
 
     def one_step():
-        return lm_lib.lm_step(res_fn, x0, lam, c0, lm_cfg, banded_masks=consts.masks)
+        return lm_lib.lm_step(res_fn, x0, lam, c0, lm_cfg, banded_masks=consts.masks,
+                              product=lambda z: consts.product(z, *args))
 
     st, pst = profiled_step(one_step), pcg["step"]
     print(f"    one eager banded LM step ({consts.masks.shape[0]} banded products, "
@@ -2115,15 +2397,13 @@ def phys_scoreboard_pass(s: dict) -> bool:
 def physics_phases(torch, dev, smi: str) -> None:
     """Phases [17]-[20]: retargeting, the staged physics solve and the whole
     per-video pipeline on the card."""
-    from chd_tpu_torch.core import bvh, fk
     from chd_tpu_torch.kinematics import lm as lm_lib
     from chd_tpu_torch.parallel import batch as batch_lib
     from chd_tpu_torch.physics import collocation as co
     from chd_tpu_torch.physics import durations as dur
-    from chd_tpu_torch.physics import srbd, towr_io
+    from chd_tpu_torch.physics import srbd
     from chd_tpu_torch.physics.synth import hopping_input, walking_input
     from chd_tpu_torch.physics.types import PhysWeights
-    from chd_tpu_torch.pipeline import cli
     from chd_tpu_torch.utils.cuda_graph import GraphCache
     from chd_tpu_torch.utils.precision import full_f32
 
@@ -2423,6 +2703,23 @@ def physics_phases(torch, dev, smi: str) -> None:
         fail(f"[19] small batch, float32 stage by stage: the card and the CPU disagree: {bad}")
 
     # -- 20. the run CLI on the card --------------------------------------
+    run_cli_phase(torch, dev)
+
+
+def run_cli_phase(torch, dev) -> None:
+    """Phase [20]: the ``run`` CLI on the card on a synthetic 12-frame video
+    dir, and its retargeting and physics stages on the CPU from the card's
+    kinematic results (each stage on the CPU from the card's input, as [15]
+    and [19] hold theirs: the kinematic stage at this budget on this dir is
+    [16]'s, which [16] holds card against CPU)."""
+    import shutil
+
+    from chd_tpu_torch.core import bvh, fk
+    from chd_tpu_torch.physics import towr_io
+    from chd_tpu_torch.pipeline import cli
+    from chd_tpu_torch.pipeline.run import run_physics_stage, run_retarget_stage
+    from chd_tpu_torch.utils.config import PipelineConfig
+
     g = np.load(TRAJ_GOLDEN)
     skel = golden_skeleton(g)
     J = len(skel.parents)
@@ -2434,14 +2731,27 @@ def physics_phases(torch, dev, smi: str) -> None:
         for device in ("cuda", "cpu"):
             root = os.path.join(tmp, device)
             dirs[device] = synth_video_dir(root, skel)
-            t = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
-                rc = cli.main(["run", "--data", root, "--character", "ybot", "--skel-path",
-                               skel_bvh, "--char-bvh", YBOT_TEMPLATE, "--device", device,
-                               "--set", *sets])
-            t20[device] = time.perf_counter() - t
-            if rc != 0:
-                fail(f"[20] the run CLI on {device} returned {rc}")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["run", "--data", os.path.join(tmp, "cuda"), "--character", "ybot",
+                           "--skel-path", skel_bvh, "--char-bvh", YBOT_TEMPLATE, "--device",
+                           dev.type, "--set", *sets])
+        t20["cuda"] = time.perf_counter() - t
+        if rc != 0:
+            fail(f"[20] the run CLI on {dev.type} returned {rc}")
+        # the CPU's stages from the card's kinematic results
+        kin = os.path.join(dirs["cpu"], "kinematic_results")
+        os.makedirs(kin)
+        for name in ("final_test.bvh", "floor_out.txt", "foot_contacts.npy"):
+            shutil.copyfile(os.path.join(dirs["cuda"], "kinematic_results", name),
+                            os.path.join(kin, name))
+        cfg = PipelineConfig().override(**{"character": "ybot", "kinematic.skel_path": skel_bvh,
+                                           **RUN_BUDGET})
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_retarget_stage(dirs["cpu"], cfg, YBOT_TEMPLATE, device="cpu")
+            run_physics_stage(dirs["cpu"], cfg, device="cpu")
+        t20["cpu"] = time.perf_counter() - t
         labels = ("no_dynamics", "dynamics", "durations")
         want = {"kinematic_results": ["final_test.bvh", "floor_out.txt", "foot_contacts.npy",
                                       "ybot_out.bvh"],
@@ -2473,8 +2783,9 @@ def physics_phases(torch, dev, smi: str) -> None:
             bvh_d = max(bvh_d, float(np.abs(pa[0] - pb_[0]).max()))
         print(f"[20] run CLI on the card (synthetic 12-frame video dir; kinematic IK 20, LM 8:30; "
               f"retarget to ybot, IK 200; physics AL 1/1/1/1, LM 3:10): {t20['cuda']:.2f} s "
-              f"({t20['cpu']:.2f} s on the CPU); wrote {found['cuda']}; success logs {logs}; "
-              f"BVH joints {sorted(joints)}; against the CPU run: solutions max|d| {sol_d:.3e} m "
+              f"(retargeting and physics {t20['cpu']:.2f} s on the CPU); wrote {found['cuda']}; "
+              f"success logs {logs}; BVH joints {sorted(joints)}; against the CPU's retargeting "
+              f"and physics from the card's kinematic results: solutions max|d| {sol_d:.3e} m "
               f"(<= {RUN_SOL_MAX_D}), BVH joints max|d| {bvh_d:.3e} cm (<= {RUN_BVH_MAX_D})")
         if (found["cuda"] != want or found["cpu"] != want or joints != {67}
                 or set(logs["cuda"]) != {"dynamics", "durations"}):
@@ -3147,10 +3458,11 @@ def main() -> None:
     library_phase(torch, dev)
     host_layer_phase(torch, dev, smi)
     entry["launches_by_path"].update(parallel_phase(torch, dev, smi))
+    jtjv_entries = jtjv_phase(torch, dev, smi, pcg["jtjv_launches"])
 
     if "jax" in sys.modules or any(m.split(".")[0] == "chd_tpu" for m in sys.modules):
         fail("jax or chd_tpu was imported")
-    print(json.dumps({"kernels": [entry] + modes}))
+    print(json.dumps({"kernels": [entry] + modes + jtjv_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -120,7 +120,8 @@ def test_banded_jtj_matches_dense_jacobian():
     r, vjp_fn = torch.func.vjp(res, x)
     _, lin = torch.func.vjp(lambda cot: vjp_fn(cot)[0], torch.zeros_like(r))
     masks = banded.coloring_masks(F, D, dtype=torch.float64, device="cpu")
-    U0, L1, L2 = banded.banded_jtj(lambda v: vjp_fn(lin(v)[0])[0], masks, 2, F, D)
+    U0, L1, L2 = banded.banded_jtj(torch.func.vmap(lambda v: vjp_fn(lin(v)[0])[0]), masks, 2, F,
+                                   D)
     assert U0.shape == (2, F, D, D)
     np.testing.assert_array_equal(masks.numpy(), np.asarray(jax_banded.coloring_masks(F, D)))
     for b in range(2):
