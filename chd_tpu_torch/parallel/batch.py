@@ -16,6 +16,13 @@ one frame count and the duration specs to one phase count, so a sequence
 pads alike sharded or not; each rank then solves its contiguous slice on its
 own device (``mesh.device``), replaying its own CUDA graphs with no
 collective inside a step, and the results are gathered once at the end.
+
+Each stage is a span of ``utils.profiling`` (``phys.fit``, ``phys.dyn``,
+``phys.height``, ``phys.stage3``, ``phys.stage4``, each with its ``steps``,
+its AL iterations times ``lm.max_iters``), and a whole solve
+(``solve_physics_full_batch``) is ``phys.call`` over them, its host prep
+(``phys.prepare``) and the flags' copy back (``phys.unpack``); the counter
+``phys.durations_ok`` adds the sequences whose duration solve is kept.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from ..physics.types import PhysInput, PhysResult, PhysWeights
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import resolve_device
 from ..utils.precision import full_f32
+from ..utils.profiling import count, span
 
 StageHook = Optional[Callable[[str], None]]
 
@@ -128,7 +136,7 @@ def _staged_core(phys_batch: PhysInput, weights: PhysWeights, cfg: collocation.S
     """FIT→DYN→HEIGHT on the device, no host sync. Returns (res_fit,
     res_dyn). ``stage_hook(name)``, where given, is called after each stage
     ("fit", "dyn", "height"; ``durations_core`` adds "stage3", "stage4"),
-    e.g. to record a CUDA event."""
+    e.g. to record a CUDA event. Each stage is the span ``phys.<name>``."""
     F = phys_batch.base_lin.shape[1]
     masks = _masks(F, phys_batch, graphs)
     dyn_cost = collocation.dyn_cost_for(weights)
@@ -139,7 +147,9 @@ def _staged_core(phys_batch: PhysInput, weights: PhysWeights, cfg: collocation.S
               ("dyn", dyn_cost, collocation.DYN_RHO, cfg.al_iters_dyn),
               ("height", dyn_cost, collocation.DYN_H_RHO, cfg.al_iters_height))
     for name, w, rho, iters in stages:
-        x, lams = collocation.run_stage(x, phys_batch, lams, w, rho, iters, cfg.lm, masks, graphs)
+        with span(f"phys.{name}", steps=iters * cfg.lm.max_iters):
+            x, lams = collocation.run_stage(x, phys_batch, lams, w, rho, iters, cfg.lm, masks,
+                                            graphs)
         if name == "fit":
             res_fit = collocation._to_result(x, phys_batch)
         if stage_hook is not None:
@@ -230,15 +240,18 @@ def durations_core(phys_batch: PhysInput, stage2: PhysResult, spec_b: dur_lib.Du
                    cfg: collocation.SolveConfig = collocation.SolveConfig(),
                    graphs: Optional[GraphCache] = None, stage_hook: StageHook = None):
     """Stage 3 (durations) and stage 4 (the frozen-duration polish) on the
-    device, no host sync. ``spec_b`` comes from :func:`pad_duration_specs`.
+    device, no host sync, each stage a span (``phys.stage3``,
+    ``phys.stage4``). ``spec_b`` comes from :func:`pad_duration_specs`.
     Returns (result, stats, ok), ok a device bool tensor (B,)."""
     x2 = collocation.join_vars(stage2.base_lin, stage2.base_ang, stage2.ee_pos, stage2.ee_force)
-    x3, d3 = stage3_solve(phys_batch, x2, spec_b, weights, cfg, graphs)
+    with span("phys.stage3", steps=cfg.al_iters_durations * cfg.lm.max_iters):
+        x3, d3 = stage3_solve(phys_batch, x2, spec_b, weights, cfg, graphs)
     if stage_hook is not None:
         stage_hook("stage3")
     F = phys_batch.base_lin.shape[1]
     phys_new = phys_batch._replace(contact=dur_lib.rasterize(d3, spec_b, F, phys_batch.dt))
-    x4 = stage4_solve(phys_new, x3, weights, cfg, graphs)
+    with span("phys.stage4", steps=max(cfg.al_iters_height, 1) * cfg.lm.max_iters):
+        x4 = stage4_solve(phys_new, x3, weights, cfg, graphs)
     if stage_hook is not None:
         stage_hook("stage4")
 
@@ -270,7 +283,15 @@ def solve_physics_durations_batch(
     with full_f32():
         res, stats, ok = _global(mesh, durations_core(phys_batch, stage2, spec_b, weights, cfg,
                                                       _graphs_for(phys_batch, graphs)))
-    return res, stats, ok.cpu().numpy()
+    return res, stats, _flags(ok)
+
+
+def _flags(ok: torch.Tensor) -> np.ndarray:
+    """The ``durations_ok`` flags on the host, counted into
+    ``phys.durations_ok``."""
+    ok = ok.cpu().numpy()
+    count("phys.durations_ok", int(ok.sum()))
+    return ok
 
 
 def solve_physics_full_batch(
@@ -290,16 +311,26 @@ def solve_physics_full_batch(
     reference's sol_out_no_dynamics / sol_out_dynamics / final artifacts
     (phys_optim.cpp:554-749); results and stats stay on the device.
     ``spec_b`` defaults to :func:`pad_duration_specs` of the whole batch (a
-    copy of its schedule to the host, before the solve)."""
-    if spec_b is None:
-        spec_b = pad_duration_specs(phys_batch)
-    phys_batch, spec_b = _local(mesh, phys_batch, spec_b)
-    graphs = _graphs_for(phys_batch, graphs)
-    with full_f32():
-        res_fit, res_dyn = _staged_core(phys_batch, weights, cfg, graphs)
-        res, stats, ok = durations_core(phys_batch, res_dyn, spec_b, weights, cfg, graphs)
-        res_fit, res_dyn, res, stats, ok = _global(mesh, (res_fit, res_dyn, res, stats, ok))
-    return res_fit, res_dyn, res, stats, ok.cpu().numpy()
+    copy of its schedule to the host, before the solve).
+
+    A call is the span ``phys.call`` (attributes ``B``, ``F``) over
+    ``phys.prepare`` (the duration specs' host work and copy), the five
+    stages' spans and ``phys.unpack`` (the flags' copy back):
+    ``utils.profiling.snapshot()`` reads them."""
+    with span("phys.call", B=int(phys_batch.base_lin.shape[0]),
+              F=int(phys_batch.base_lin.shape[1])):
+        with span("phys.prepare"):
+            if spec_b is None:
+                spec_b = pad_duration_specs(phys_batch)
+        phys_batch, spec_b = _local(mesh, phys_batch, spec_b)
+        graphs = _graphs_for(phys_batch, graphs)
+        with full_f32():
+            res_fit, res_dyn = _staged_core(phys_batch, weights, cfg, graphs)
+            res, stats, ok = durations_core(phys_batch, res_dyn, spec_b, weights, cfg, graphs)
+            res_fit, res_dyn, res, stats, ok = _global(mesh, (res_fit, res_dyn, res, stats, ok))
+        with span("phys.unpack"):
+            ok = _flags(ok)
+    return res_fit, res_dyn, res, stats, ok
 
 
 def unbatch_results(res: PhysResult, seq_lens) -> List[PhysResult]:
