@@ -43,8 +43,12 @@ that knows the residual it is handed (``kinematics/jtjv.py``'s
 ``kinematics.batch`` passes on CUDA). ``product(x, *args)`` returns the
 linearization at x: called on (B, n) tangents, with ``many`` for (M, B, n)
 and ``diag(masks)`` for the coloring diagonal. The gradient g = Jᵀr and the
-cost stay autograd's. Without it (the default: physics, ``parallel``, the
-CPU) the product is the double vjp. Each solve counts its path on the host,
+cost stay autograd's. A residual function may name its own supplier:
+where no ``product`` is given, ``lm_solve`` takes
+``residual_fn.product_for(x0)`` (physics' AL residual gives its kernel's on
+CUDA, ``physics/jtjv.py``), so every solve of that residual, whoever calls
+it, finds the same captured step. Without either (``parallel``, stage 3,
+the CPU) the product is the double vjp. Each solve counts its path on the host,
 ``lm.jtjv.autograd`` or ``lm.jtjv.<product.path>`` (``utils.profiling``).
 """
 from __future__ import annotations
@@ -220,9 +224,12 @@ def lm_solve(residual_fn: Callable, x0: torch.Tensor, args, cfg: LMConfig,
     (``banded.coloring_masks(F, D)``) switch the inner solve to the banded
     direct solve (``diag_masks`` is then ignored). ``product``, a supplier
     of JᵀJ·v for ``residual_fn`` (``product(x, *args)``; see the module's
-    docstring), replaces the double vjp. Returns (x (B, n), final cost
+    docstring), replaces the double vjp; without it, ``residual_fn``'s own
+    ``product_for(x0)`` where it has one. Returns (x (B, n), final cost
     (B,)).
     """
+    if product is None and hasattr(residual_fn, "product_for"):
+        product = residual_fn.product_for(x0)
     count("lm.jtjv.autograd" if product is None else f"lm.jtjv.{product.path}")
     if banded_masks is not None:
         diag_masks = None

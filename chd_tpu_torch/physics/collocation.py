@@ -33,9 +33,11 @@ residual functions are cached per structure (which blocks are on, whether
 the acceleration terms are), and take the cost weights and penalties as
 arguments, which ``lm_solve`` turns into 0-d tensors: FIT, DYN, DYN_H,
 stage 3 and stage 4 are five residual graphs, and a stage's AL iterations
-replay one captured LM step. Hinges use ``torch.maximum`` with a zero, whose
-derivative at a tie is 1/2 as ``jnp.maximum``'s (the forces start at zero,
-so the friction-cone rows sit at exact ties on the first step).
+replay one captured LM step; on CUDA the AL residual's JᵀJ·v is the
+hand-written kernel of ``physics/jtjv.py`` (stage 3 keeps autograd's).
+Hinges use ``torch.maximum`` with a zero, whose derivative at a tie is 1/2
+as ``jnp.maximum``'s (the forces start at zero, so the friction-cone rows
+sit at exact ties on the first step).
 
 ``solve_physics`` and ``solve_physics_durations`` take one problem, as
 ``chd_tpu``'s do, and solve it as a batch of one.
@@ -277,13 +279,23 @@ def _al_residual_fn(accel: bool, active: tuple):
         r += _penalties(constraints(x, phys), lams, rho, active)
         return torch.cat(r, dim=-1)
 
+    def product_for(x0):
+        """The JᵀJ·v kernel of this structure for a solve on CUDA
+        (``physics/jtjv.py``), None elsewhere (autograd's product)."""
+        from . import jtjv
+
+        return jtjv.solve_product(accel, active, x0)
+
+    al_residuals.product_for = product_for
     return al_residuals
 
 
 def make_al_residual_fn(w: CostW, rho: Rho):
     """The AL residual ``fn(x, phys, lams, w, rho)`` of the stage schedule
     (w, rho): one function object per structure, so ``lm_solve``'s graph
-    cache captures one LM step a stage."""
+    cache captures one LM step a stage. ``fn.product_for(x0)`` names its
+    JᵀJ·v kernel for a solve on CUDA, which ``lm_solve`` takes in place of
+    the double vjp."""
     return _al_residual_fn(*_structure(w, rho))
 
 

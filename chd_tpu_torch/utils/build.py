@@ -63,8 +63,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"chd_fused_mlp_{name}")
         fn.argtypes = args
         fn.restype = i
-    lib.chd_traj_jtjv.argtypes = [i, i, ctypes.POINTER(ll), ctypes.POINTER(ll), p]
-    lib.chd_traj_jtjv.restype = i
+    for name in ("chd_traj_jtjv", "chd_phys_jtjv"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, i, ctypes.POINTER(ll), ctypes.POINTER(ll), p]
+        fn.restype = i
     lib.chd_cuda_error_string.argtypes = [i]
     lib.chd_cuda_error_string.restype = ctypes.c_char_p
 

@@ -145,13 +145,16 @@ steps replayed as CUDA graphs):
     2 cm of the data;
 19. the realistic batch (the slice's main path): ``solve_physics_full_batch``
     on 32 x ``walking_input(100, seed=i)``, the default ``SolveConfig`` and
-    ``PhysWeights``, as CUDA graphs: a capturing call, a timed call
-    (seconds, sequences/hour), the same graphs inside
+    ``PhysWeights``, as CUDA graphs: a capturing call (with the JᵀJ·v
+    kernel's launches: FIT, DYN, HEIGHT and the polish take it, stage 3
+    autograd's product), a timed call (seconds, sequences/hour), the same
+    graphs inside
     ``set_sync_debug_mode("error")`` with each stage's time by CUDA events
     (FIT, DYN, HEIGHT, stage 3, stage 4), bitwise the call's results; the
     ``durations_ok`` rate and the largest dynamics violation;
     ``tests/test_physics_scoreboard.py``'s gates on every sequence; 3 LM
-    steps eager and replayed, bitwise equal; one eager LM step profiled;
+    steps eager and replayed, bitwise equal; one eager LM step profiled
+    (the kernel's product, as the main path);
     then a small ragged batch (24 and 20 frames), card vs CPU: float64 end
     to end, float32 stage by stage from the card's input, with the frames
     whose rasterized contact differs;
@@ -262,9 +265,20 @@ The kinematic LM's JᵀJ·v kernel (``csrc/traj_jtjv.cu``):
     graph of 50, its bound from the bytes it moves and its FLOP, and the
     double vjp's time eager and replayed as a graph.
 
+The physics LM's JᵀJ·v kernel (``csrc/phys_jtjv.cu``):
+
+27. at [19]'s 32 x 100 frames in float32 and float64, DYN_H's structure
+    (every block), product and the 90-mask coloring diagonal, against
+    autograd's double vjp in float64 at the same point (the largest dof
+    group's relative error norm within 1e-5 in float32, 1e-10 in float64;
+    a product without its Newton–Euler block must fail it), a second
+    launch bitwise equal; a launch's time by CUDA events over a graph of
+    50, its bound from the bytes it moves and its FLOP, and the double
+    vjp's time eager and replayed as a graph.
+
 Then it prints one JSON line on the kernels (the fused-MLP kernel in each of
-its four modes, the JᵀJ·v kernel in each mode and type with [15]'s launch
-counts), the card's name and power limit, and, last,
+its four modes, each JᵀJ·v kernel in each mode and type with [15]'s and
+[19]'s launch counts), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line, and so does a machine without CUDA.
 """
@@ -385,6 +399,17 @@ JTJV_REPS = 50                   # launches in a timed graph
 # squared tangents. H100 SXM float64 (non-tensor) peak at 700 W
 JTJV_FRAME_FLOP = {"product": 26e3, "diag": 0.21e6}
 F64_PEAK = 34e12
+# [27]: the physics JᵀJ·v kernel at [19]'s 32 x 100 frames against
+# autograd's double vjp in float64 at the same point, on the largest of the
+# dof groups' relative error norms (the Newton–Euler rows make some entries
+# ~1e7 times others): float32 rounds R·I·Rᵀ and the rows to ~6e-8 a step,
+# and a block left out moves a group by far more. FLOP a frame, counted
+# from csrc/phys_jtjv.cu: level 0's sines, cosines and differences, the
+# Newton–Euler block's 3x3 products, tangent and transpose, the leg,
+# heel, height, terrain, slip and cone rows, the transposes of the
+# differences and the cost residuals; the diagonal is 90 such products
+PHYS_JTJV_REL = {"float32": 1e-5, "float64": 1e-10}
+PHYS_JTJV_FRAME_FLOP = {"product": 3.0e3, "diag": 90 * 3.0e3}
 
 
 def fail(msg: str) -> None:
@@ -1743,6 +1768,53 @@ def kinematic_cli_phase(torch, dev, skel) -> None:
             fail(f"[16] the CLI's gate does not tell {missed} from the kernel")
 
 
+def coloring_diag(fn, masks, like):
+    """Σₖ mₖ ⊙ fn(mₖ) over the coloring masks, each broadcast over the
+    sequences of ``like``, in one vmapped pass (as ``lm_step`` forms it)."""
+    import torch
+
+    m = masks.unsqueeze(1).expand((masks.shape[0],) + like.shape)
+    return torch.func.vmap(lambda mk: mk * fn(mk))(m).sum(0)
+
+
+def side_stream(torch):
+    """(on_side, graph_ms) on one side stream, for [26] and [27]: the
+    double vjp's linearization, its calls and its graph on one stream
+    (autograd runs a backward op on its forward op's stream, a capture
+    takes no work from the legacy stream, and a vmapped backward cannot
+    sync a batched tensor across streams). ``on_side(fn)`` runs fn there;
+    ``graph_ms(fn, reps)`` is the milliseconds a call of fn, by CUDA events
+    over replays of a graph of ``reps`` calls captured there (the median
+    of 5)."""
+    side = torch.cuda.Stream()
+
+    def on_side(fn):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = fn()
+        torch.cuda.current_stream().wait_stream(side)
+        return out
+
+    def graph_ms(fn, reps):
+        on_side(fn)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        times = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            graph.replay()
+            ev[1].record()
+            times.append(stage_ms(ev)[0] / reps)
+        return statistics.median(times)
+
+    return on_side, graph_ms
+
+
 def jtjv_phase(torch, dev, smi: str, launches: dict) -> list:
     """Phase [26]: the kinematic LM's JᵀJ·v kernel (``csrc/traj_jtjv.cu``)
     at [15]'s 16 x 100 frames in float32 and float64, product and diagonal,
@@ -1779,41 +1851,7 @@ def jtjv_phase(torch, dev, smi: str, launches: dict) -> list:
         _, lin = torch.func.vjp(lambda c: vjp_fn(c)[0], torch.zeros_like(r))
         return lambda v: vjp_fn(lin(v)[0])[0]
 
-    def coloring(fn, masks, like):
-        m = masks.unsqueeze(1).expand((masks.shape[0],) + like.shape)
-        return torch.func.vmap(lambda mk: mk * fn(mk))(m).sum(0)
-
-    # the double vjp's linearization, its calls and its graph on one
-    # stream: autograd runs a backward op on its forward op's stream, a
-    # capture takes no work from the legacy stream, and a vmapped backward
-    # cannot sync a batched tensor across streams
-    side = torch.cuda.Stream()
-
-    def on_side(fn):
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            out = fn()
-        torch.cuda.current_stream().wait_stream(side)
-        return out
-
-    def graph_ms(fn, reps):
-        """Milliseconds a call of fn, by CUDA events over replays of a
-        graph of ``reps`` calls captured on ``side`` (the median of 5)."""
-        on_side(fn)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            for _ in range(reps):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph.replay()
-        times = []
-        for _ in range(5):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            graph.replay()
-            ev[1].record()
-            times.append(stage_ms(ev)[0] / reps)
-        return statistics.median(times)
+    on_side, graph_ms = side_stream(torch)
 
     def rel(got, want):
         return float((got.double() - want).norm() / want.norm())
@@ -1836,8 +1874,8 @@ def jtjv_phase(torch, dev, smi: str, launches: dict) -> list:
         fn = on_side(lambda: autograd(x, data, w, consts))
         masks = consts.masks
         runs = {"product": (lambda: lin(v), lambda: ref(v.double()), lambda: fn(v)),
-                "diag": (lambda: lin.diag(masks), lambda: coloring(ref, masks.double(), x),
-                         lambda: coloring(fn, masks, x))}
+                "diag": (lambda: lin.diag(masks), lambda: coloring_diag(ref, masks.double(), x),
+                         lambda: coloring_diag(fn, masks, x))}
         for mode, (kernel, want_fn, plain) in runs.items():
             got, want = kernel(), want_fn()
             err, again = rel(got, want), kernel()
@@ -1878,6 +1916,112 @@ def jtjv_phase(torch, dev, smi: str, launches: dict) -> list:
                   f"error {bad:.3e} (must exceed {JTJV_REL[name]})")
             if not bad > JTJV_REL[name]:
                 fail("[26] the kernel's gate does not tell a product without its projection "
+                     "block")
+    return entries
+
+
+def phys_jtjv_phase(torch, dev, smi: str, launches: dict) -> list:
+    """Phase [27]: the physics AL residual's JᵀJ·v kernel
+    (``csrc/phys_jtjv.cu``) at [19]'s 32 x 100 frames in float32 and
+    float64, DYN_H's structure (every block) at a point with about half of
+    every hinged block's rows active: product and the 90-mask diagonal,
+    each against autograd's double vjp in float64 at the same point within
+    ``PHYS_JTJV_REL`` (a product without its Newton–Euler block must fail
+    that), bitwise equal on a second launch; its time by CUDA events over a
+    graph of ``JTJV_REPS`` launches, its bound from the bytes it moves and
+    the FLOP it does, the double vjp's time eager and replayed as a graph.
+    ``launches`` are [19]'s counts. Returns the kernel's entries of the
+    kernels line."""
+    from chd_tpu_torch.kinematics import lm as lm_lib
+    from chd_tpu_torch.physics import collocation as co
+    from chd_tpu_torch.physics import jtjv as phys_jtjv_lib
+
+    w, rho = phys_jtjv_structures()["DYN_H"]
+    fn = co.make_al_residual_fn(w, rho)
+    prod = phys_jtjv_lib.product_for(*co._structure(w, rho))
+    lens = [PHYS_F] * PHYS_B
+
+    def setup(dtype):
+        pb, x, lams = phys_jtjv_point(lens, dev, dtype)
+        args = lm_lib._tensor_floats((pb, lams, w, rho), x)
+        return x, args, prod(x, *args)
+
+    def autograd(x, args):
+        r, vjp_fn = torch.func.vjp(lambda z: fn(z, *args), x)
+        _, lin = torch.func.vjp(lambda c: vjp_fn(c)[0], torch.zeros_like(r))
+        return lambda v: vjp_fn(lin(v)[0])[0]
+
+    on_side, graph_ms = side_stream(torch)
+
+    def rel(got, want):
+        """The largest over the dof groups of the error norm over the norm."""
+        g = got.double().reshape(PHYS_B, PHYS_F, co.DOF)
+        h = want.double().reshape(PHYS_B, PHYS_F, co.DOF)
+        return max(float((g[..., a:b] - h[..., a:b]).norm() / h[..., a:b].norm())
+                   for a, b in ((0, 3), (3, 6), (6, 18), (18, 30)))
+
+    x64, _, _ = setup(torch.float64)
+    v64 = torch.randn(x64.shape, dtype=torch.float64, device=dev,
+                      generator=torch.Generator(dev).manual_seed(27))
+    masks64 = lm_lib.frame_coloring_masks(PHYS_F, co.DOF, dtype=torch.float64, device=dev)
+    print(f"[27] the physics JtJ.v kernel at [19]'s shapes ({PHYS_B} x {PHYS_F} frames, DYN_H: "
+          f"every block, about half of each hinged block's rows active), against autograd's "
+          f"double vjp in float64 at the same point (the largest dof group's relative error "
+          f"norm); {smi}")
+    entries = []
+    for dtype, peak in ((torch.float32, F32_PEAK), (torch.float64, F64_PEAK)):
+        name = str(dtype).split(".")[-1]
+        x, args, lin = setup(dtype)
+        v, masks = v64.to(dtype), masks64.to(dtype)
+        ref = autograd(x.double(), lm_lib._tensor_floats(tuple(
+            type(a)(*(None if t is None else t.double() for t in a)) for a in args), x64))
+        plain_fn = on_side(lambda: autograd(x, args))
+        runs = {"product": (lambda: lin(v), lambda: ref(v64), lambda: plain_fn(v)),
+                "diag": (lambda: lin.diag(masks), lambda: coloring_diag(ref, masks64, x64),
+                         lambda: coloring_diag(plain_fn, masks, x))}
+        pb = args[0]
+        data = [pb.dt, pb.mass, pb.floor_normal, pb.contact, pb.left_hip, pb.right_hip,
+                pb.inertia] + ([] if pb.frame_mask is None else [pb.frame_mask]) \
+            + list(lin.hinge.values())
+        for mode, (kernel, want_fn, plain) in runs.items():
+            got, want = kernel(), want_fn()
+            err, again = rel(got, want), kernel()
+            max_abs = float((got.double() - want).abs().max())
+            ms = graph_ms(kernel, JTJV_REPS)
+            plain_ms = wall(lambda: on_side(lambda: [plain() for _ in range(3)]))[0] / 3 * 1e3
+            library_ms = graph_ms(plain, 1)
+            n_bytes = sum(t.numel() * t.element_size() for t in [x, got] + data
+                          + ([v] if mode == "product" else []))
+            flop = PHYS_JTJV_FRAME_FLOP[mode] * PHYS_B * PHYS_F
+            by_bytes, by_flop = n_bytes / HBM_RATE * 1e3, flop / peak * 1e3
+            bound_ms = max(by_bytes, by_flop)
+            bound_by = "bytes" if by_bytes >= by_flop else "operations"
+            print(f"    {mode}, {name}: relative error {err:.3e} (<= {PHYS_JTJV_REL[name]}), "
+                  f"max|d| {max_abs:.3e}; a second launch bitwise equal: "
+                  f"{torch.equal(got, again)}; {ms * 1e3:.1f} us a launch (a graph of "
+                  f"{JTJV_REPS}); bound {bound_ms * 1e3:.2f} us ({bound_by}: {n_bytes / 1e6:.3f} "
+                  f"MB, {flop / 1e6:.1f} MFLOP), {bound_ms / ms:.3f} of it reached; the double "
+                  f"vjp {plain_ms:.2f} ms eager, {library_ms:.3f} ms replayed as a graph")
+            if not (err <= PHYS_JTJV_REL[name] and torch.equal(got, again)):
+                fail(f"[27] the physics JtJ.v kernel's {mode} in {name} disagrees with "
+                     "autograd's")
+            entries.append({
+                "name": "phys_jtjv", "mode": f"{mode}.{name}", "route": "cuda",
+                "source": "chd_tpu_torch/csrc/phys_jtjv.cu",
+                "replaces": "chd_tpu/kinematics/lm.py:133 (jax.linearize, its transpose)",
+                "launches": launches["solve_physics_full_batch"][mode],
+                "launches_by_path": {k: c[mode] for k, c in launches.items()},
+                "max_abs_err": max_abs, "rel_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,  # torch.func's double vjp as a CUDA graph
+            })
+        if dtype == torch.float32:
+            no_dyn = phys_jtjv_lib.PhysicsProduct(prod.accel, prod.active[1:])
+            bad = rel(no_dyn(x, *args)(v), ref(v64))
+            print(f"    control: the product without its Newton-Euler block, float32: "
+                  f"relative error {bad:.3e} (must exceed {PHYS_JTJV_REL[name]})")
+            if not bad > PHYS_JTJV_REL[name]:
+                fail("[27] the kernel's gate does not tell a product without its Newton-Euler "
                      "block")
     return entries
 
@@ -2301,6 +2445,57 @@ def library_phase(torch, dev) -> None:
             fail(f"[23] {name}: card and CPU differ by {dv}")
 
 
+def phys_jtjv_structures() -> dict:
+    """The four AL stages whose JᵀJ·v is the kernel's: (cost weights,
+    penalties) of FIT, DYN, HEIGHT (DYN_H) and the stage-4 polish."""
+    from chd_tpu_torch.physics import collocation as co
+    from chd_tpu_torch.physics.types import PhysWeights
+
+    dyn = co.dyn_cost_for(PhysWeights())
+    return {"FIT": (co.FIT_COST, co.FIT_RHO), "DYN": (dyn, co.DYN_RHO),
+            "DYN_H": (dyn, co.DYN_H_RHO),
+            "stage4": (co.dyn_cost_for(PhysWeights(), accel=0.0), co.DYN_H_RHO)}
+
+
+def phys_jtjv_point(lens, device, dtype, seed: int = 0, start: bool = False):
+    """(phys, x, lams) of ``walking_input`` clips of ``lens`` frames padded to
+    one batch, on ``device`` in ``dtype``, made in float64 on the host so
+    every device and type starts from the same point. ``start``: the FIT
+    stage's start (the data, zero forces and multipliers: the friction
+    cone's normal-force rows at exact ties). Else a point off it: the data
+    moved ~2 cm, forces spread 60, 60, 250 N, multipliers 0.5, and the leg
+    and height multipliers set so that about half of those rows are active
+    (their shifted values ±0.01 around 0)."""
+    import torch
+
+    from chd_tpu_torch.parallel import batch as batch_lib
+    from chd_tpu_torch.physics import collocation as co
+    from chd_tpu_torch.physics.synth import walking_input
+
+    f64 = torch.float64
+    pb, _ = batch_lib.pad_phys_inputs([walking_input(L, seed=seed + i) for i, L in enumerate(lens)],
+                                      device="cpu", dtype=f64)
+    B, F = pb.base_lin.shape[:2]
+    x = co.join_vars(pb.base_lin, pb.base_ang, pb.ee_pos, torch.zeros_like(pb.ee_pos))
+    lams = co.init_multipliers(pb)
+    if not start:
+        rng = np.random.default_rng(seed)
+        x = (x + torch.from_numpy(rng.normal(0, 0.02, x.shape))).reshape(B, F, co.DOF)
+        x[..., 18:] = torch.from_numpy(rng.normal(0, 1, (B, F, 12)) * np.tile([60, 60, 250], 4))
+        x = x.reshape(B, -1)
+        lams = co.Constraints(*(torch.from_numpy(rng.normal(0, 0.5, v.shape)) for v in lams))
+        cons, rho = co.constraints(x, pb), co.DYN_H_RHO
+        lams = lams._replace(**{k: getattr(rho, k) * (torch.from_numpy(
+            rng.normal(0, 0.01, getattr(cons, k).shape)) - getattr(cons, k))
+            for k in ("leg", "height")})
+
+    def move(t):
+        return None if t is None else t.to(device=device, dtype=dtype)
+
+    return (type(pb)(*(move(t) for t in pb)), move(x).contiguous(),
+            type(lams)(*(move(t) for t in lams)))
+
+
 def phys_fit_golden_gates(device, graphs=None) -> dict:
     """The port's FIT stage (the default budget: 2 AL iterations of LM 25:50)
     on walking_input(20, seed=0) in float32, and what the gates of
@@ -2394,13 +2589,15 @@ def phys_scoreboard_pass(s: dict) -> bool:
             and s["clearance"] > -0.02 and s["phases"] <= 2)
 
 
-def physics_phases(torch, dev, smi: str) -> None:
+def physics_phases(torch, dev, smi: str) -> dict:
     """Phases [17]-[20]: retargeting, the staged physics solve and the whole
-    per-video pipeline on the card."""
+    per-video pipeline on the card. Returns the physics JᵀJ·v kernel's
+    launches in [19]'s capturing call."""
     from chd_tpu_torch.kinematics import lm as lm_lib
     from chd_tpu_torch.parallel import batch as batch_lib
     from chd_tpu_torch.physics import collocation as co
     from chd_tpu_torch.physics import durations as dur
+    from chd_tpu_torch.physics import jtjv as phys_jtjv_lib
     from chd_tpu_torch.physics import srbd
     from chd_tpu_torch.physics.synth import hopping_input, walking_input
     from chd_tpu_torch.physics.types import PhysWeights
@@ -2519,14 +2716,17 @@ def physics_phases(torch, dev, smi: str) -> None:
     def call():
         return batch_lib.solve_physics_full_batch(pb, weights, cfg, spec_b=spec, graphs=graphs)
 
+    launches = dict(phys_jtjv_lib.phys_jtjv.launches)
     t_first, _ = wall(call)
+    launches = {k: v - launches[k] for k, v in phys_jtjv_lib.phys_jtjv.launches.items()}
     t_calls = []
     for _ in range(2):
         t, out = wall(call)
         t_calls.append(t)
     captures = graphs.captures
-    print(f"    first call {t_first:.3f} s ({captures} captures), then " + ", ".join(
-        f"{t:.3f} s = {PHYS_B / t * 3600:.0f}" for t in t_calls) + " sequences/hour")
+    print(f"    first call {t_first:.3f} s ({captures} captures; JtJ.v kernel launches "
+          f"{launches}), then " + ", ".join(
+              f"{t:.3f} s = {PHYS_B / t * 3600:.0f}" for t in t_calls) + " sequences/hour")
 
     stages = ["fit", "dyn", "height", "stage3", "stage4"]
     events = []
@@ -2603,17 +2803,18 @@ def physics_phases(torch, dev, smi: str) -> None:
     with full_f32():
         c0 = lm_lib._half_sq(res_fn(x_dyn))
 
+    product = lm_lib._bound(fn.product_for(x_dyn), targs)  # the main path's: the kernel's
+
     def one_step():
         with full_f32():
-            return lm_lib.lm_step(res_fn, x_dyn, lam, c0, cfg.lm, masks)
+            return lm_lib.lm_step(res_fn, x_dyn, lam, c0, cfg.lm, masks, product=product)
 
     st = profiled_step(one_step)
-    print(f"    one eager DYN_H LM step ({cfg.lm.cg_iters} CG iterations, the "
-          f"{masks.shape[0]}-mask diagonal pass): {st['t_step'] * 1e3:.1f} ms, "
-          f"{st['peak_gib']:.2f} GiB above the inputs at peak; profiled: wall "
+    print(f"    one eager DYN_H LM step ({cfg.lm.cg_iters} CG iterations, a JtJ.v kernel "
+          f"launch each, the {masks.shape[0]}-mask diagonal in one): {st['t_step'] * 1e3:.1f} "
+          f"ms, {st['peak_gib']:.2f} GiB above the inputs at peak; profiled: wall "
           f"{st['t_prof'] * 1e3:.1f} ms, {st['launches']} launches, {st['kernels']} device "
-          f"kernels (~{st['kernels'] / (cfg.lm.cg_iters + 2):.0f} per JtJ.v product), device "
-          f"busy {st['busy'] * 1e3:.1f} ms, idle share {st['idle']:.3f}")
+          f"kernels, device busy {st['busy'] * 1e3:.1f} ms, idle share {st['idle']:.3f}")
     print_top_items(st)
 
     # a small ragged batch, card against the port on the CPU
@@ -2704,6 +2905,7 @@ def physics_phases(torch, dev, smi: str) -> None:
 
     # -- 20. the run CLI on the card --------------------------------------
     run_cli_phase(torch, dev)
+    return {"solve_physics_full_batch": launches}
 
 
 def run_cli_phase(torch, dev) -> None:
@@ -3452,13 +3654,14 @@ def main() -> None:
     entry = contact_phases(torch, dev, smi)
     entry["mode"] = "high"
     pcg = kinematic_phases(torch, dev, smi)
-    physics_phases(torch, dev, smi)
+    phys_launches = physics_phases(torch, dev, smi)
     banded_phase(torch, dev, smi, pcg)
     modes = precision_phase(torch, dev, smi)
     library_phase(torch, dev)
     host_layer_phase(torch, dev, smi)
     entry["launches_by_path"].update(parallel_phase(torch, dev, smi))
     jtjv_entries = jtjv_phase(torch, dev, smi, pcg["jtjv_launches"])
+    jtjv_entries += phys_jtjv_phase(torch, dev, smi, phys_launches)
 
     if "jax" in sys.modules or any(m.split(".")[0] == "chd_tpu" for m in sys.modules):
         fail("jax or chd_tpu was imported")
