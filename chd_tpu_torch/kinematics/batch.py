@@ -14,8 +14,8 @@ Each stage is a function of its own (``ik_init_batch``, ``lm_stage``,
 inner systems by PCG (``lm_solver="pcg"``, the default) or by the banded
 direct solve of ``kinematics/banded.py`` (``"banded"``). On CUDA their
 JᵀJ·v products, and the PCG's diagonal, are the trajectory residual's own
-kernel (``kinematics/jtjv.py``), which ``lm_stage`` hands ``lm_solve``; on
-the CPU they are autograd's. With a ``mesh``
+kernel (``kinematics/jtjv.py``), which the residual names to ``lm_solve``;
+on the CPU they are autograd's. With a ``mesh``
 (``parallel.mesh``) each rank solves its contiguous slice of the padded
 batch and the results are gathered once at the end.
 """
@@ -30,12 +30,12 @@ from ..characters import defs
 from ..core import quat
 from ..core.animation import Animation
 from ..parallel import mesh as mesh_lib
+from ..utils import cuda_graph
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from . import banded as banded_lib
 from . import floor as floor_lib
-from . import jtjv as jtjv_lib
 from . import trajectory as traj_lib
 from .ik import IKConfig, IKLayout, _solve as ik_solve
 from .lm import LMConfig, frame_coloring_masks, lm_solve
@@ -57,10 +57,9 @@ LM_SOLVERS = ("pcg", "banded")
 class BatchConsts:
     """Device constants of a batch shape: the residual layout, the IK layout,
     the coloring masks of the LM solver (the diagonal's for "pcg", the
-    bands' for "banded"), the gathers of targets and feet, and on CUDA the
-    residual's JᵀJ·v kernel (``product``; None on the CPU). Built before a
-    solve (they copy from the host); a ``GraphCache`` keeps one per shape and
-    solver."""
+    bands' for "banded"), the gathers of targets and feet. Built before a
+    solve (they copy from the host, the residual's JᵀJ·v kernel its tree's
+    table on CUDA); a ``GraphCache`` keeps one per shape and solver."""
 
     def __init__(self, parents: Sequence[int], num_frames: int, ik_cfg: IKConfig,
                  device, dtype, lm_solver: str = "pcg"):
@@ -79,18 +78,17 @@ class BatchConsts:
         self.feet_cols = torch.as_tensor(_S2D[defs.COMBINED_SKEL_FEET_IDX], device=device)
         self.xz = torch.as_tensor([0, 2], device=device)
         self.smooth = torch.as_tensor(defs.COMBINED_SMOOTH_WEIGHTS, dtype=dtype, device=device)
-        self.product = (jtjv_lib.TrajectoryProduct(self.layout)
-                        if torch.device(device).type == "cuda" else None)
+        # the supplier a solve on this device takes, built now: a tree the
+        # kernel does not take raises here, not inside a solve
+        self.layout.residual.product_for(self.smooth)
 
 
 def batch_consts(parents, num_frames: int, ik_cfg: IKConfig, device, dtype,
                  graphs: Optional[GraphCache] = None, lm_solver: str = "pcg") -> BatchConsts:
     key = ("kinematic_batch", tuple(parents), num_frames, ik_cfg, torch.device(device), dtype,
            lm_solver)
-    if graphs is None:
-        return BatchConsts(parents, num_frames, ik_cfg, device, dtype, lm_solver)
-    return graphs.constant(key, lambda: BatchConsts(parents, num_frames, ik_cfg, device, dtype,
-                                                    lm_solver))
+    return cuda_graph.constant(graphs, key, lambda: BatchConsts(parents, num_frames, ik_cfg,
+                                                                device, dtype, lm_solver))
 
 
 def prepare_batch_arrays(problems: Sequence[dict], skeleton: Animation, cam_focal=defs.MTC_FOCAL,
@@ -154,15 +152,13 @@ def make_data(arrs, consts: BatchConsts, vc, normal, point) -> TrajectoryData:
 def lm_stage(x0, data: TrajectoryData, w: TermWeights, consts: BatchConsts, lm_cfg: LMConfig,
              graphs: Optional[GraphCache] = None) -> torch.Tensor:
     """One LM stage over the batch: PCG with the exact coloring diagonal, or
-    the banded direct solve (``consts.lm_solver``). The products are
-    ``consts.product``'s, the kernel of this residual, where the constants
-    live on CUDA, and autograd's elsewhere."""
+    the banded direct solve (``consts.lm_solver``). The products are those
+    the residual names, its kernel's on CUDA and autograd's elsewhere."""
     if consts.lm_solver == "banded":
         x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, graphs=graphs,
-                        banded_masks=consts.masks, product=consts.product)
+                        banded_masks=consts.masks)
     else:
-        x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, consts.masks, graphs,
-                        product=consts.product)
+        x, _ = lm_solve(consts.layout.residual, x0, (data, w), lm_cfg, consts.masks, graphs)
     return x
 
 
@@ -272,8 +268,7 @@ def optimize_trajectory_batch(
     if mesh is not None:
         device = mesh.device
     device = resolve_device(device)
-    if graphs is None and device.type == "cuda":
-        graphs = GraphCache()
+    graphs = cuda_graph.graphs_for(device, graphs)
     parents = tuple(skeleton.parents)
     lens = [p["pose2d"].shape[0] for p in problems]
     with span("kin.call", B=len(problems), F=max(lens)):

@@ -12,30 +12,27 @@ a block per (tangent, sequence, tile of ``TILE`` frames with ``HALO``
 frames on each side). A diagonal mode gives diag(JᵀJ), the quantity that
 ``lm.frame_coloring_masks``' coloring gives as Σₖ mₖ ⊙ JᵀJ mₖ.
 
-``TrajectoryProduct(layout)`` is the product supplier that
-``kinematics.batch`` hands ``lm_solve`` for its own residual
-(``layout.residual``) when the solve runs on CUDA: ``product(x, data, w)``
-is the linearization at x, called on tangents (B, n), with ``many`` for
-tangents (M, B, n) and ``diag`` for the diagonal. Every other caller keeps
-the autograd product: physics and ``parallel.longseq`` run other residuals
-or their own linearization, and the CPU has no kernel.
+``TrajectoryProduct(layout)`` is the kernel's supplier (``ops/jtjv.py``),
+one a layout, which ``layout.residual`` names for a solve on CUDA and
+``lm_solve`` takes; the CPU keeps the autograd product.
 
 ``traj_jtjv_plain`` is the kernel's algorithm in plain torch: the same
 tiles and halos, the same hand-derived tangent and transpose through the
 tree (joints on the last axis where the kernel has a warp's lanes), for
-tests only (``EmulatedProduct``), as ``ops.fused_mlp.fused_mlp_split_plain``
-is for the MLP kernel. The package's CPU paths never call it.
+tests only (``TrajectoryProduct.emulated``), as
+``ops.fused_mlp.fused_mlp_split_plain`` is for the MLP kernel. The
+package's CPU paths never call it.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..characters import defs
-from ..utils import build
+from ..ops import jtjv as jtjv_ops
+from ..ops.jtjv import check_like
 from .residuals import SMOOTH_VEL_EULER, Layout, TermWeights, TrajectoryData
 
 TILE = 12            # a product block's own frames (kTile)
@@ -44,9 +41,7 @@ SLOTS = defs.COMBINED_NUM_JOINTS  # data-order joints of the residual
 MAX_JOINTS = 31      # one lane a joint; lane 31 is the root translation
 MAX_CHILDREN = 6
 LANES = 32
-MODES = ("product", "diag")
 WEIGHTS = TermWeights._fields  # proj, smooth_vel, smooth_acc, data, vel, floor
-DTYPES = (torch.float32, torch.float64)
 
 
 def tree_tables(parents, data_to_skel=defs.COMBINED_DATA_TO_SKEL):
@@ -86,106 +81,59 @@ def tree_tables(parents, data_to_skel=defs.COMBINED_DATA_TO_SKEL):
 
 # -- the kernel ---------------------------------------------------------------
 
-def _inner_contiguous(t: torch.Tensor) -> bool:
-    want = 1
-    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
-        if size > 1 and stride != want:
-            return False
-        want *= size
-    return True
-
-
-def _check_like(name: str, t, shape, like: torch.Tensor) -> torch.Tensor:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, not {type(t).__name__}")
-    if t.device != like.device or t.dtype != like.dtype:
-        raise TypeError(f"{name} is {t.dtype} on {t.device}; the solve is {like.dtype} on "
-                        f"{like.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, not {tuple(shape)}")
-    if t.dim() > 1 and not _inner_contiguous(t):
-        raise ValueError(f"{name} must be contiguous past its first axis (strides "
-                         f"{t.stride()})")
-    return t
-
-
-def traj_jtjv(mode: str, x: torch.Tensor, data: TrajectoryData, w: TermWeights,
-              product: "TrajectoryProduct", vs: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel: ``mode`` "product" gives JᵀJ·v (M, B, n) for the
-    tangents ``vs`` (M, B, n) (any strides over M and B, each row
-    contiguous; a mask broadcast over B by ``expand`` is read in place);
-    "diag" gives diag(JᵀJ) (B, n). x (B, n) contiguous; the weights 0-d
-    tensors (``lm_solve`` makes them); every tensor on one CUDA device in
-    float32 or float64. Raises on what the kernel does not take."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-        raise ValueError("traj_jtjv runs on CUDA tensors; on the CPU the product is "
-                         "autograd's")
-    if x.dtype not in DTYPES:
-        raise TypeError(f"traj_jtjv takes {DTYPES}, not {x.dtype}")
+def traj_jtjv(mode: str, lin: "Linearization", vs: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Launch the kernel for ``lin`` (``ops.jtjv.launch``; a mask broadcast
+    over B by ``expand`` is read in place). The weights are 0-d tensors
+    (``lm_solve`` makes them). Raises on what the kernel does not take."""
+    x, data, w, product = lin.x, lin.data, lin.w, lin.product
     B, F = data.pose3d.shape[:2]
     J = data.offsets.shape[-2]
+    jtjv_ops.check_x(traj_jtjv, mode, x, (B, F * (3 + 3 * J)))
     if J != product.num_joints:
         raise ValueError(f"offsets of {J} joints for a tree of {product.num_joints}")
-    D = 3 + 3 * J
-    if tuple(x.shape) != (B, F * D) or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous ({B}, {F * D}), not {tuple(x.shape)} "
-                         f"with strides {x.stride()}")
-    arrays = [_check_like("proj_weights", data.proj_weights, (B, F, SLOTS), x),
-              _check_like("data_weights", data.data_weights, (B, F, SLOTS), x),
-              _check_like("smooth_weights", data.smooth_weights, (B, SLOTS), x),
-              _check_like("vel_constraints", data.vel_constraints, (B, F, SLOTS), x),
-              _check_like("floor_normal", data.floor_normal, (B, 3), x),
-              _check_like("offsets", data.offsets, (B, J, 3), x)]
+    arrays = [check_like("proj_weights", data.proj_weights, (B, F, SLOTS), x),
+              check_like("data_weights", data.data_weights, (B, F, SLOTS), x),
+              check_like("smooth_weights", data.smooth_weights, (B, SLOTS), x),
+              check_like("vel_constraints", data.vel_constraints, (B, F, SLOTS), x),
+              check_like("floor_normal", data.floor_normal, (B, 3), x),
+              check_like("offsets", data.offsets, (B, J, 3), x)]
     fmask = (None if data.frame_mask is None
-             else _check_like("frame_mask", data.frame_mask, (B, F), x))
-    weights = [_check_like(f"weight {k}", getattr(w, k), (), x) for k in WEIGHTS]
-    sxyz = _check_like("smooth_xyz", product.layout.smooth_xyz, (3,), x)
+             else check_like("frame_mask", data.frame_mask, (B, F), x))
+    weights = [check_like(f"weight {k}", getattr(w, k), (), x) for k in WEIGHTS]
+    sxyz = check_like("smooth_xyz", product.layout.smooth_xyz, (3,), x)
     if product.tables.device != x.device:
         raise ValueError(f"the tree's tables are on {product.tables.device}, not {x.device}")
-    if mode == "product":
-        if not isinstance(vs, torch.Tensor) or vs.device != x.device or vs.dtype != x.dtype:
-            raise TypeError("the tangents must be a tensor of x's device and dtype")
-        if vs.dim() != 3 or tuple(vs.shape[1:]) != (B, F * D) or vs.shape[0] < 1 \
-                or vs.stride(-1) != 1:
-            raise ValueError(f"the tangents must be (M, {B}, {F * D}) with contiguous rows, "
-                             f"not {tuple(vs.shape)} with strides {vs.stride()}")
-        M = vs.shape[0]
-        out = torch.empty((M, B, F * D), dtype=x.dtype, device=x.device)
-        v_ptr, v_sm, v_sb = vs.data_ptr(), vs.stride(0), vs.stride(1)
-    else:
-        M = 1
-        out = torch.empty((B, F * D), dtype=x.dtype, device=x.device)
-        v_ptr, v_sm, v_sb = x.data_ptr(), 0, 0
-    ptrs = [x.data_ptr(), v_ptr, out.data_ptr()] + [t.data_ptr() for t in arrays] \
-        + [0 if fmask is None else fmask.data_ptr()] + [t.data_ptr() for t in weights] \
-        + [sxyz.data_ptr(), product.tables.data_ptr()]
-    ints = [M, B, F, J, product.root_slot, product.max_depth, product.max_children, v_sm, v_sb] \
-        + [t.stride(0) for t in arrays] + [0 if fmask is None else fmask.stride(0)]
-    k = build.kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = k.lib.chd_traj_jtjv(DTYPES.index(x.dtype), MODES.index(mode),
-                                  (ctypes.c_longlong * len(ptrs))(*ptrs),
-                                  (ctypes.c_longlong * len(ints))(*ints), stream)
-    build.check(k.lib, err, "traj_jtjv launch")
-    traj_jtjv.launches[mode] += 1
-    return out
+    ptrs = [t.data_ptr() for t in arrays] + [0 if fmask is None else fmask.data_ptr()] \
+        + [t.data_ptr() for t in weights] + [sxyz.data_ptr(), product.tables.data_ptr()]
+    head = [F, J, product.root_slot, product.max_depth, product.max_children]
+    tail = [t.stride(0) for t in arrays] + [0 if fmask is None else fmask.stride(0)]
+    return jtjv_ops.launch(traj_jtjv, mode, x, vs, head, ptrs, tail, diag_v=x.data_ptr())
 
 
-traj_jtjv.launches = dict.fromkeys(MODES, 0)
+traj_jtjv.launches = dict.fromkeys(jtjv_ops.MODES, 0)
 
 
-class TrajectoryProduct:
-    """The product supplier of ``trajectory_residuals`` on ``layout`` for
-    ``lm.lm_solve``: ``self(x, data, w)`` is the linearization at x
-    (``Linearization``), and ``path`` names it in the ``lm.jtjv.<path>``
-    counter. Built once, outside a solve (it copies the tree's table to the
-    layout's device); one object serves every call, so a captured LM step
-    is found again."""
+class Linearization(jtjv_ops.Linearization):
+    """JᵀJ of the trajectory residual at x (``ops.jtjv.Linearization``);
+    its diagonal is diag(JᵀJ)."""
 
-    path = "kernel"
+    def __init__(self, product: "TrajectoryProduct", x, data: TrajectoryData, w: TermWeights):
+        super().__init__(product, x)
+        self.data, self.w = data, w
+        self.frames, self.dofs = data.pose3d.shape[1], 3 + 3 * product.num_joints
+
+
+class TrajectoryProduct(jtjv_ops.Supplier):
+    """The supplier of ``trajectory_residuals`` on ``layout``:
+    ``self(x, data, w)`` is the linearization at x. Built once a layout,
+    outside a solve (it copies the tree's table to the layout's device; it
+    raises for a tree the kernel does not take)."""
+
+    path, emulation_path = "kernel", "emulation"
+    TILE = TILE
+    linearization = Linearization
+    kernel = staticmethod(traj_jtjv)
 
     def __init__(self, layout: Layout):
         self.layout = layout
@@ -194,49 +142,8 @@ class TrajectoryProduct:
         self.root_slot = int(defs.COMBINED_ROOT_IDX)
         self.tables = torch.as_tensor(tab, device=layout.tree.device)
 
-    def __call__(self, x, data: TrajectoryData, w: TermWeights) -> "Linearization":
-        return Linearization(self, x, data, w)
-
-    def compute(self, mode, x, data, w, vs=None) -> torch.Tensor:
-        return traj_jtjv(mode, x, data, w, self, vs)
-
-
-class EmulatedProduct(TrajectoryProduct):
-    """``TrajectoryProduct`` with ``traj_jtjv_plain`` in the kernel's place,
-    on any device: the tests' supplier."""
-
-    path = "emulation"
-
-    def __init__(self, layout: Layout, tile: int = TILE):
-        super().__init__(layout)
-        self.tile = tile
-
-    def compute(self, mode, x, data, w, vs=None) -> torch.Tensor:
-        return traj_jtjv_plain(mode, x, data, w, self, vs, self.tile)
-
-
-class Linearization:
-    """JᵀJ at x: ``self(v)`` for tangents (B, n), ``many(vs)`` for tangents
-    (M, B, n) in one launch, and ``diag(masks)``, the coloring diagonal
-    Σₖ mₖ ⊙ JᵀJ mₖ of ``lm.frame_coloring_masks(F, D)`` (bandwidth 2),
-    which is diag(JᵀJ)."""
-
-    def __init__(self, product: TrajectoryProduct, x, data, w):
-        self.product, self.x, self.data, self.w = product, x, data, w
-
-    def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return self.many(v.unsqueeze(0))[0]
-
-    def many(self, vs: torch.Tensor) -> torch.Tensor:
-        return self.product.compute("product", self.x, self.data, self.w, vs)
-
-    def diag(self, masks: torch.Tensor) -> torch.Tensor:
-        F = self.data.pose3d.shape[1]
-        D = 3 + 3 * self.product.num_joints
-        if tuple(masks.shape) != (3 * D, F * D):
-            raise ValueError(f"the diagonal is the one of frame_coloring_masks({F}, {D}) "
-                             f"(({3 * D}, {F * D})), not of masks {tuple(masks.shape)}")
-        return self.product.compute("diag", self.x, self.data, self.w)
+    def plain(self, mode, lin, vs, tile):
+        return traj_jtjv_plain(mode, lin, vs, tile)
 
 
 # -- the emulation ------------------------------------------------------------
@@ -372,15 +279,13 @@ def _proj_t(alpha, nx, dn):
     return alpha.unsqueeze(-1) * (dn[..., :2] / nx[..., 2:3] - nx[..., :2] * dn[..., 2:3] / z2)
 
 
-def traj_jtjv_plain(mode: str, x: torch.Tensor, data: TrajectoryData, w: TermWeights,
-                    product: TrajectoryProduct, vs: Optional[torch.Tensor] = None,
+def traj_jtjv_plain(mode: str, lin: Linearization, vs: Optional[torch.Tensor] = None,
                     tile: int = TILE) -> torch.Tensor:
     """``traj_jtjv``'s algorithm in plain torch, on the CPU: tiles of
     ``tile`` own frames with ``HALO`` on each side (product mode), the FK at
     x, the tangents through the tree, the residual blocks' cotangents per
     data-order joint, the transpose. Same arguments and results."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    x, data, w, product = lin.x, lin.data, lin.w, lin.product
     B, F = data.pose3d.shape[:2]
     J = data.offsets.shape[-2]
     D = 3 + 3 * J

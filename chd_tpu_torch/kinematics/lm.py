@@ -37,19 +37,15 @@ laid out frame-major.
 captured CUDA graph: the same kernels as the eager step, launched by one
 call, one capture per mode and shape.
 
-``product=`` replaces the double vjp by a caller's own JᵀJ·v: a supplier
-that knows the residual it is handed (``kinematics/jtjv.py``'s
-``TrajectoryProduct``, the kernel of the trajectory residual, which
-``kinematics.batch`` passes on CUDA). ``product(x, *args)`` returns the
-linearization at x: called on (B, n) tangents, with ``many`` for (M, B, n)
-and ``diag(masks)`` for the coloring diagonal. The gradient g = Jᵀr and the
-cost stay autograd's. A residual function may name its own supplier:
-where no ``product`` is given, ``lm_solve`` takes
-``residual_fn.product_for(x0)`` (physics' AL residual gives its kernel's on
-CUDA, ``physics/jtjv.py``), so every solve of that residual, whoever calls
-it, finds the same captured step. Without either (``parallel``, stage 3,
-the CPU) the product is the double vjp. Each solve counts its path on the host,
-``lm.jtjv.autograd`` or ``lm.jtjv.<product.path>`` (``utils.profiling``).
+A residual may name its own JᵀJ·v supplier, ``residual_fn.product_for(x0)``
+(the trajectory and AL residuals name their kernels on CUDA,
+``ops/jtjv.py``), which ``lm_solve`` takes in place of the double vjp and
+keys the captured step by, so every solve of the residual, whoever calls
+it, finds the same graph. ``supplier(x, *args)`` is the linearization at x,
+``lm_step``'s ``product``: called on (B, n) tangents, with ``many`` for
+(M, B, n) and ``diag(masks)`` for the coloring diagonal. The gradient and
+the cost stay autograd's. Each solve counts its path, ``lm.jtjv.autograd``
+or ``lm.jtjv.<supplier.path>`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -215,21 +211,18 @@ def _bound(product: Optional[Callable], args) -> Optional[Callable]:
 
 def lm_solve(residual_fn: Callable, x0: torch.Tensor, args, cfg: LMConfig,
              diag_masks: Optional[torch.Tensor] = None, graphs: Optional[GraphCache] = None,
-             banded_masks: Optional[torch.Tensor] = None, product: Optional[Callable] = None):
+             banded_masks: Optional[torch.Tensor] = None):
     """Minimize ½‖residual_fn(x, *args)[b]‖² from x0[b] for every problem b.
 
     x0: (B, n); ``residual_fn`` returns (B, R). ``diag_masks`` (from
     ``frame_coloring_masks``) give the exact Marquardt scaling and Jacobi
     preconditioner; without them the damping is λI. ``banded_masks``
     (``banded.coloring_masks(F, D)``) switch the inner solve to the banded
-    direct solve (``diag_masks`` is then ignored). ``product``, a supplier
-    of JᵀJ·v for ``residual_fn`` (``product(x, *args)``; see the module's
-    docstring), replaces the double vjp; without it, ``residual_fn``'s own
-    ``product_for(x0)`` where it has one. Returns (x (B, n), final cost
-    (B,)).
+    direct solve (``diag_masks`` is then ignored). The JᵀJ·v products are
+    ``residual_fn.product_for(x0)``'s where it names one (see the module's
+    docstring), autograd's otherwise. Returns (x (B, n), final cost (B,)).
     """
-    if product is None and hasattr(residual_fn, "product_for"):
-        product = residual_fn.product_for(x0)
+    product = getattr(residual_fn, "product_for", lambda x0: None)(x0)
     count("lm.jtjv.autograd" if product is None else f"lm.jtjv.{product.path}")
     if banded_masks is not None:
         diag_masks = None

@@ -20,6 +20,7 @@ projection/data weight, no contact, padded frames) are exact zeros.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -27,6 +28,7 @@ import torch
 from ..characters import defs
 from ..core import quat
 from ..core.fk import Tree, positions_global
+from ..ops import jtjv as jtjv_ops
 
 SMOOTH_VEL_EULER = 10.0  # euler-velocity multiplier; per-axis xyz is Layout.smooth_xyz
 
@@ -75,11 +77,35 @@ class Layout:
         self.smooth_xyz = torch.tensor([1.0, 1.0, 2.0], dtype=dtype, device=device)
         quat.warm_constants(device, dtype)
 
-    def residual(self, x, data: "TrajectoryData", w: "TermWeights") -> torch.Tensor:
-        """``trajectory_residuals`` on this layout: a stable function for
-        ``lm.lm_solve`` (bound methods of one layout compare equal, so a
-        captured LM step is found again)."""
-        return trajectory_residuals(x, data, w, self)
+    @functools.cached_property
+    def residual(self) -> "TrajectoryResidual":
+        """``trajectory_residuals`` on this layout, ``residual(x, data, w)``:
+        one object a layout for ``lm.lm_solve``, so a captured LM step is
+        found again."""
+        return TrajectoryResidual(self)
+
+
+class TrajectoryResidual:
+    """``trajectory_residuals`` on one layout (``Layout.residual``), naming
+    its JᵀJ·v for ``lm.lm_solve``: ``product_for(x0)`` is the layout's one
+    kernel supplier (``kinematics/jtjv.py``) on CUDA, None elsewhere. The
+    supplier is built on first use: it copies the tree's table to the
+    device, and raises for a tree the kernel does not take."""
+
+    def __init__(self, layout: Layout):
+        self.layout = layout
+
+    def __call__(self, x, data: "TrajectoryData", w: "TermWeights") -> torch.Tensor:
+        return trajectory_residuals(x, data, w, self.layout)
+
+    def product_for(self, x0: torch.Tensor):
+        return jtjv_ops.supplier(x0, lambda: self.kernel)
+
+    @functools.cached_property
+    def kernel(self):
+        from .jtjv import TrajectoryProduct
+
+        return TrajectoryProduct(self.layout)
 
 
 def data_order_positions(x: torch.Tensor, offsets: torch.Tensor, layout: Layout):

@@ -21,8 +21,7 @@ Each stage is a span of ``utils.profiling`` (``phys.fit``, ``phys.dyn``,
 ``phys.height``, ``phys.stage3``, ``phys.stage4``, each with its ``steps``,
 its AL iterations times ``lm.max_iters``), and a whole solve
 (``solve_physics_full_batch``) is ``phys.call`` over them, its host prep
-(``phys.prepare``) and the flags' copy back (``phys.unpack``); the counter
-``phys.durations_ok`` adds the sequences whose duration solve is kept.
+(``phys.prepare``) and the flags' copy back (``phys.unpack``).
 """
 from __future__ import annotations
 
@@ -36,10 +35,11 @@ from ..parallel import mesh as mesh_lib
 from ..physics import collocation
 from ..physics import durations as dur_lib
 from ..physics.types import PhysInput, PhysResult, PhysWeights
+from ..utils import cuda_graph
 from ..utils.cuda_graph import GraphCache
 from ..utils.device import resolve_device
 from ..utils.precision import full_f32
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 
 StageHook = Optional[Callable[[str], None]]
 
@@ -114,21 +114,10 @@ def pad_duration_specs(phys_batch: PhysInput) -> dur_lib.DurationSpec:
     return dur_lib.DurationSpec(*(stack(f) for f in dur_lib.DurationSpec._fields))
 
 
-def _graphs_for(phys_batch: PhysInput, graphs: Optional[GraphCache]) -> Optional[GraphCache]:
-    """On a CUDA device the LM steps replay as CUDA graphs: a fresh cache
-    unless the caller keeps one across calls."""
-    if graphs is None and phys_batch.dt.device.type == "cuda":
-        return GraphCache()
-    return graphs
-
-
 def _masks(F: int, phys_batch: PhysInput, graphs: Optional[GraphCache]) -> torch.Tensor:
     dtype, device = phys_batch.dt.dtype, phys_batch.dt.device
-
-    def make():
-        return frame_coloring_masks(F, collocation.DOF, dtype=dtype, device=device)
-
-    return make() if graphs is None else graphs.constant(("phys_masks", F, dtype, device), make)
+    return cuda_graph.constant(graphs, ("phys_masks", F, dtype, device), lambda: (
+        frame_coloring_masks(F, collocation.DOF, dtype=dtype, device=device)))
 
 
 def _staged_core(phys_batch: PhysInput, weights: PhysWeights, cfg: collocation.SolveConfig,
@@ -176,7 +165,7 @@ def solve_physics_batch(phys_batch: PhysInput, weights: PhysWeights = PhysWeight
     phys_batch, = _local(mesh, phys_batch)
     with full_f32():
         return _global(mesh, _staged_core(phys_batch, weights, cfg,
-                                          _graphs_for(phys_batch, graphs)))
+                                          cuda_graph.graphs_for(phys_batch.dt.device, graphs)))
 
 
 def stage3_problem(F: int, spec_b: dur_lib.DurationSpec, weights: PhysWeights,
@@ -197,8 +186,7 @@ def stage3_problem(F: int, spec_b: dur_lib.DurationSpec, weights: PhysWeights,
         aug[traj.shape[0]:, n_traj:] = torch.eye(dof_d, dtype=dtype, device=device)
         return aug
 
-    masks_aug = make() if graphs is None else graphs.constant(
-        ("phys_stage3_masks", F, dof_d, dtype, device), make)
+    masks_aug = cuda_graph.constant(graphs, ("phys_stage3_masks", F, dof_d, dtype, device), make)
     return fn3, masks_aug, dyn_cost, n_traj
 
 
@@ -281,17 +269,10 @@ def solve_physics_durations_batch(
     spec_b = pad_duration_specs(phys_batch)
     phys_batch, stage2, spec_b = _local(mesh, phys_batch, stage2, spec_b)
     with full_f32():
-        res, stats, ok = _global(mesh, durations_core(phys_batch, stage2, spec_b, weights, cfg,
-                                                      _graphs_for(phys_batch, graphs)))
-    return res, stats, _flags(ok)
-
-
-def _flags(ok: torch.Tensor) -> np.ndarray:
-    """The ``durations_ok`` flags on the host, counted into
-    ``phys.durations_ok``."""
-    ok = ok.cpu().numpy()
-    count("phys.durations_ok", int(ok.sum()))
-    return ok
+        res, stats, ok = _global(mesh, durations_core(
+            phys_batch, stage2, spec_b, weights, cfg,
+            cuda_graph.graphs_for(phys_batch.dt.device, graphs)))
+    return res, stats, ok.cpu().numpy()
 
 
 def solve_physics_full_batch(
@@ -323,13 +304,13 @@ def solve_physics_full_batch(
             if spec_b is None:
                 spec_b = pad_duration_specs(phys_batch)
         phys_batch, spec_b = _local(mesh, phys_batch, spec_b)
-        graphs = _graphs_for(phys_batch, graphs)
+        graphs = cuda_graph.graphs_for(phys_batch.dt.device, graphs)
         with full_f32():
             res_fit, res_dyn = _staged_core(phys_batch, weights, cfg, graphs)
             res, stats, ok = durations_core(phys_batch, res_dyn, spec_b, weights, cfg, graphs)
             res_fit, res_dyn, res, stats, ok = _global(mesh, (res_fit, res_dyn, res, stats, ok))
         with span("phys.unpack"):
-            ok = _flags(ok)
+            ok = ok.cpu().numpy()
     return res_fit, res_dyn, res, stats, ok
 
 

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..kinematics.lm import LMConfig, lm_solve
+from ..ops import jtjv as jtjv_ops
 from . import durations as dur_lib
 from . import srbd
 from .types import NUM_EE, PhysInput, PhysResult, PhysWeights
@@ -284,7 +285,7 @@ def _al_residual_fn(accel: bool, active: tuple):
         (``physics/jtjv.py``), None elsewhere (autograd's product)."""
         from . import jtjv
 
-        return jtjv.solve_product(accel, active, x0)
+        return jtjv_ops.supplier(x0, lambda: jtjv.product_for(accel, active))
 
     al_residuals.product_for = product_for
     return al_residuals

@@ -25,39 +25,33 @@ exact tie, as ``torch.maximum``'s), which ``Linearization`` takes once an
 LM step from ``collocation.constraints`` at x, the same operations as the
 residual's, so the gradient and the product take the same rows.
 
-``product_for(accel, active)`` is the supplier, one object per structure,
-that ``collocation``'s AL residual names for CUDA solves
-(``al_residuals.product_for``, through ``solve_product``); ``lm_solve``
-takes it from there, so every solve of that residual on a card, and every
-caller that replays its captured step, takes the kernel. Stage 3 (its
-soft schedule's residual) and the CPU keep autograd's product.
+``PhysicsProduct`` is the kernel's supplier (``ops/jtjv.py``), one a
+structure (``product_for``), which ``collocation``'s AL residual names for
+a solve on CUDA and ``lm_solve`` takes. Stage 3 (its soft schedule's
+residual) and the CPU keep autograd's product.
 
 ``phys_jtjv_plain`` is the kernel's algorithm in plain torch: the same
 tiles and halos, the same hand-derived tangent and transpose, for tests
-only (``EmulatedProduct``), as ``kinematics.jtjv.traj_jtjv_plain`` is for
-the trajectory kernel. The package's CPU paths never call it.
+only (``PhysicsProduct.emulated``), as ``kinematics.jtjv.traj_jtjv_plain``
+is for the trajectory kernel. The package's CPU paths never call it.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Optional
 
 import torch
 
-from ..kinematics.jtjv import _check_like
 from ..kinematics.lm import frame_coloring_masks
-from ..utils import build
+from ..ops import jtjv as jtjv_ops
+from ..ops.jtjv import check_like
 from . import collocation as co
 
 TILE = 26            # a warp's own frames (kTile)
 HALO = 3             # frames on each side (kHalo): see the kernel's note
-MODES = ("product", "diag")
 COST = co.CostW._fields
 BLOCKS = co.Constraints._fields       # dyn, force, heel, height, leg, slip, terrain
 HINGED = tuple(n for n in BLOCKS if co.INEQ[n])  # force, height, leg
-DTYPES = (torch.float32, torch.float64)
-COLORS = 3           # lm.frame_coloring_masks' bandwidth 2 + 1
 
 
 def hinge_factors(x, phys, lams, rho, active) -> Dict[str, torch.Tensor]:
@@ -77,80 +71,65 @@ def hinge_factors(x, phys, lams, rho, active) -> Dict[str, torch.Tensor]:
 
 def phys_jtjv(mode: str, lin: "Linearization", vs: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
-    """Launch the kernel for the linearization ``lin``: ``mode`` "product"
-    gives JᵀJ·v (M, B, n) for tangents ``vs`` (M, B, n) (any strides over M
-    and B, each row contiguous); "diag" gives the coloring diagonal (B, n).
-    Every tensor on one CUDA device in float32 or float64; the weights and
-    penalties 0-d tensors. Raises on what the kernel does not take."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    """Launch the kernel for ``lin`` (``ops.jtjv.launch``; the diagonal's 90
+    tangents are made in the kernel). The weights and penalties are 0-d
+    tensors. Raises on what the kernel does not take."""
     x, phys = lin.x, lin.phys
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-        raise ValueError("phys_jtjv runs on CUDA tensors; on the CPU the product is autograd's")
-    if x.dtype not in DTYPES:
-        raise TypeError(f"phys_jtjv takes {DTYPES}, not {x.dtype}")
     B, F = phys.base_lin.shape[:2]
+    jtjv_ops.check_x(phys_jtjv, mode, x, (B, F * co.DOF))
     if F < 2:
         raise ValueError(f"the residual needs 2 frames or more, not {F}")
-    n = F * co.DOF
-    if tuple(x.shape) != (B, n) or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous ({B}, {n}), not {tuple(x.shape)} with strides "
-                         f"{x.stride()}")
-    arrays = [_check_like("dt", phys.dt, (B,), x),
-              _check_like("mass", phys.mass, (B,), x),
-              _check_like("floor_normal", phys.floor_normal, (B, 3), x),
-              _check_like("contact", phys.contact, (B, 4, F), x),
-              _check_like("left_hip", phys.left_hip, (B, F, 3), x),
-              _check_like("right_hip", phys.right_hip, (B, F, 3), x),
-              _check_like("inertia", phys.inertia, (B, F, 3, 3), x)]
+    arrays = [check_like("dt", phys.dt, (B,), x),
+              check_like("mass", phys.mass, (B,), x),
+              check_like("floor_normal", phys.floor_normal, (B, 3), x),
+              check_like("contact", phys.contact, (B, 4, F), x),
+              check_like("left_hip", phys.left_hip, (B, F, 3), x),
+              check_like("right_hip", phys.right_hip, (B, F, 3), x),
+              check_like("inertia", phys.inertia, (B, F, 3, 3), x)]
     optional = [None if phys.frame_mask is None
-                else _check_like("frame_mask", phys.frame_mask, (B, F), x)]
+                else check_like("frame_mask", phys.frame_mask, (B, F), x)]
     shapes = {"force": (B, 4, F, 3), "height": (B, 4, F), "leg": (B, 4, F)}
-    optional += [_check_like(f"hinge {k}", lin.hinge[k], shapes[k], x) if k in lin.hinge
+    optional += [check_like(f"hinge {k}", lin.hinge[k], shapes[k], x) if k in lin.hinge
                  else None for k in HINGED]
-    weights = [_check_like(f"weight {k}", getattr(lin.w, k), (), x) for k in COST] \
-        + [_check_like(f"rho {k}", getattr(lin.rho, k), (), x) for k in BLOCKS]
-    if mode == "product":
-        if not isinstance(vs, torch.Tensor) or vs.device != x.device or vs.dtype != x.dtype:
-            raise TypeError("the tangents must be a tensor of x's device and dtype")
-        if vs.dim() != 3 or tuple(vs.shape[1:]) != (B, n) or vs.shape[0] < 1 \
-                or vs.stride(-1) != 1:
-            raise ValueError(f"the tangents must be (M, {B}, {n}) with contiguous rows, not "
-                             f"{tuple(vs.shape)} with strides {vs.stride()}")
-        M = vs.shape[0]
-        out = torch.empty((M, B, n), dtype=x.dtype, device=x.device)
-        v_ptr, v_sm, v_sb = vs.data_ptr(), vs.stride(0), vs.stride(1)
-    else:
-        M = COLORS * co.DOF
-        out = torch.empty((B, n), dtype=x.dtype, device=x.device)
-        v_ptr, v_sm, v_sb = 0, 0, 0
-    ptrs = [x.data_ptr(), v_ptr, out.data_ptr()] + [t.data_ptr() for t in arrays] \
-        + [0 if t is None else t.data_ptr() for t in optional] \
+    weights = [check_like(f"weight {k}", getattr(lin.w, k), (), x) for k in COST] \
+        + [check_like(f"rho {k}", getattr(lin.rho, k), (), x) for k in BLOCKS]
+    ptrs = [t.data_ptr() for t in arrays] + [0 if t is None else t.data_ptr() for t in optional] \
         + [t.data_ptr() for t in weights]
-    ints = [M, B, F, lin.product.flags, v_sm, v_sb] + [t.stride(0) for t in arrays] \
-        + [0 if t is None else t.stride(0) for t in optional]
-    k = build.kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = k.lib.chd_phys_jtjv(DTYPES.index(x.dtype), MODES.index(mode),
-                                  (ctypes.c_longlong * len(ptrs))(*ptrs),
-                                  (ctypes.c_longlong * len(ints))(*ints), stream)
-    build.check(k.lib, err, "phys_jtjv launch")
-    phys_jtjv.launches[mode] += 1
-    return out
+    tail = [t.stride(0) for t in arrays] + [0 if t is None else t.stride(0) for t in optional]
+    return jtjv_ops.launch(phys_jtjv, mode, x, vs, [F, lin.product.flags], ptrs, tail,
+                           diag_tangents=jtjv_ops.COLORS * co.DOF)
 
 
-phys_jtjv.launches = dict.fromkeys(MODES, 0)
+phys_jtjv.launches = dict.fromkeys(jtjv_ops.MODES, 0)
 
 
-class PhysicsProduct:
-    """The product supplier of the AL residual of one structure (``accel``,
-    ``active``) for ``lm.lm_solve``: ``self(x, phys, lams, w, rho)`` is the
-    linearization at x (``Linearization``), and ``path`` names it in the
-    ``lm.jtjv.<path>`` counter. One object a structure (``product_for``), so
-    a stage's captured LM step is found again."""
+class Linearization(jtjv_ops.Linearization):
+    """JᵀJ of the AL residual at x (``ops.jtjv.Linearization``); its
+    diagonal is the coloring diagonal of ``lm.frame_coloring_masks(F,
+    30)``. Takes the hinge factors at x on construction (once an LM step).
+    x and the problem's fields may be strided (stage 4 starts from a slice
+    of stage 3's augmented variables; the pipeline's batch can keep a
+    transposed layout); the kernel reads contiguous copies (none where they
+    are contiguous already, as in a batch of ``pad_phys_inputs``' own
+    arrays)."""
 
-    path = "phys_kernel"
+    def __init__(self, product: "PhysicsProduct", x, phys, lams, w, rho):
+        super().__init__(product, x.contiguous())
+        self.w, self.rho = w, rho
+        self.phys = type(phys)(*(None if t is None else t.contiguous() for t in phys))
+        self.hinge = hinge_factors(x, phys, lams, rho, product.active)
+        self.frames, self.dofs = phys.base_lin.shape[1], co.DOF
+
+
+class PhysicsProduct(jtjv_ops.Supplier):
+    """The supplier of the AL residual of one structure (``accel``,
+    ``active``): ``self(x, phys, lams, w, rho)`` is the linearization at
+    x."""
+
+    path, emulation_path = "phys_kernel", "phys_emulation"
+    TILE = TILE
+    linearization = Linearization
+    kernel = staticmethod(phys_jtjv)
 
     def __init__(self, accel: bool, active: tuple):
         unknown = set(active) - set(BLOCKS)
@@ -161,68 +140,15 @@ class PhysicsProduct:
         # 1 + i block BLOCKS[i]
         self.flags = int(self.accel) | sum(1 << (1 + BLOCKS.index(n)) for n in self.active)
 
-    def __call__(self, x, phys, lams, w, rho) -> "Linearization":
-        return Linearization(self, x, phys, lams, w, rho)
-
-    def compute(self, mode, lin, vs=None) -> torch.Tensor:
-        return phys_jtjv(mode, lin, vs)
+    def plain(self, mode, lin, vs, tile):
+        return phys_jtjv_plain(mode, lin, vs, tile)
 
 
 @functools.lru_cache(maxsize=None)
 def product_for(accel: bool, active: tuple) -> PhysicsProduct:
-    """The kernel's supplier of the structure (``accel``, ``active``)."""
+    """The kernel's supplier of the structure (``accel``, ``active``), one
+    object a structure, so a stage's captured LM step is found again."""
     return PhysicsProduct(accel, active)
-
-
-def solve_product(accel: bool, active: tuple, x0: torch.Tensor) -> Optional[PhysicsProduct]:
-    """The supplier a solve from x0 takes: the kernel's on CUDA, None
-    (autograd's double vjp) elsewhere."""
-    return product_for(accel, active) if x0.device.type == "cuda" else None
-
-
-class EmulatedProduct(PhysicsProduct):
-    """``PhysicsProduct`` with ``phys_jtjv_plain`` in the kernel's place, on
-    the CPU: the tests' supplier."""
-
-    path = "phys_emulation"
-
-    def __init__(self, accel: bool, active: tuple, tile: int = TILE):
-        super().__init__(accel, active)
-        self.tile = tile
-
-    def compute(self, mode, lin, vs=None) -> torch.Tensor:
-        return phys_jtjv_plain(mode, lin, vs, self.tile)
-
-
-class Linearization:
-    """JᵀJ at x: ``self(v)`` for tangents (B, n), ``many(vs)`` for tangents
-    (M, B, n) in one launch, and ``diag(masks)``, the coloring diagonal
-    Σₖ mₖ ⊙ JᵀJ mₖ of ``lm.frame_coloring_masks(F, 30)``. Takes the hinge
-    factors at x on construction (once an LM step). x and the problem's
-    fields may be strided (stage 4 starts from a slice of stage 3's
-    augmented variables; the pipeline's batch can keep a transposed
-    layout); the kernel reads contiguous copies (none where they are
-    contiguous already, as in a batch of ``pad_phys_inputs``' own arrays)."""
-
-    def __init__(self, product: PhysicsProduct, x, phys, lams, w, rho):
-        self.product, self.w, self.rho = product, w, rho
-        self.x = x.contiguous()
-        self.phys = type(phys)(*(None if t is None else t.contiguous() for t in phys))
-        self.hinge = hinge_factors(x, phys, lams, rho, product.active)
-
-    def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return self.many(v.unsqueeze(0))[0]
-
-    def many(self, vs: torch.Tensor) -> torch.Tensor:
-        return self.product.compute("product", self, vs)
-
-    def diag(self, masks: torch.Tensor) -> torch.Tensor:
-        F = self.phys.base_lin.shape[1]
-        if tuple(masks.shape) != (COLORS * co.DOF, F * co.DOF):
-            raise ValueError(f"the diagonal is the one of frame_coloring_masks({F}, {co.DOF}) "
-                             f"(({COLORS * co.DOF}, {F * co.DOF})), not of masks "
-                             f"{tuple(masks.shape)}")
-        return self.product.compute("diag", self)
 
 
 # -- the emulation ------------------------------------------------------------
@@ -294,8 +220,6 @@ def phys_jtjv_plain(mode: str, lin: Linearization, vs: Optional[torch.Tensor] = 
     memory. The diagonal runs the product on the 90 coloring tangents and
     keeps each output where its tangent is 1, as the kernel does. Same
     arguments and results."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     x, phys, prod = lin.x, lin.phys, lin.product
     B, F = phys.base_lin.shape[:2]
     D, n = co.DOF, F * co.DOF

@@ -15,7 +15,7 @@ the graph's kernels and copies.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, Dict, Hashable, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
@@ -89,6 +89,19 @@ class GraphCache:
             graph.instantiate()
         self.captures += 1
         return _Entry(graph, static_state, static_args)
+
+
+def graphs_for(device, graphs: Optional[GraphCache]) -> Optional[GraphCache]:
+    """The cache a solve on ``device`` replays through: ``graphs`` where
+    given, else a fresh one on CUDA and None (eager) elsewhere."""
+    if graphs is None and torch.device(device).type == "cuda":
+        return GraphCache()
+    return graphs
+
+
+def constant(graphs: Optional[GraphCache], key: Hashable, make: Callable[[], Any]) -> Any:
+    """``graphs.constant(key, make)``, or ``make()`` without a cache."""
+    return make() if graphs is None else graphs.constant(key, make)
 
 
 _CU_GRAPH_NODE_TYPE_KERNEL, _CU_GRAPH_NODE_TYPE_MEMCPY = 0, 1

@@ -1440,7 +1440,7 @@ def kinematic_phases(torch, dev, smi: str) -> dict:
     def counted(fn):
         """(seconds, result, the JᵀJ·v kernel's launches by mode, kernel
         solves) of fn(), the wrapper's and lm_solve's counts zeroed before."""
-        for mode in jtjv_lib.MODES:
+        for mode in jtjv_lib.traj_jtjv.launches:
             jtjv_lib.traj_jtjv.launches[mode] = 0
         solves = profiling.snapshot()["counters"].get("lm.jtjv.kernel", 0)
         t, out = wall(fn)
@@ -1524,11 +1524,11 @@ def kinematic_phases(torch, dev, smi: str) -> dict:
 
     def one_step():
         return lm_lib.lm_step(res_fn, x0, lam, c0, lm_cfg, consts.masks,
-                              product=lambda z: consts.product(z, *args))
+                              product=lm_lib._bound(consts.layout.residual.product_for(x0), args))
 
     st = profiled_step(one_step)
     step_launches = {m: sum(e.count for e in st["device_items"] if f"{m}_kernel" in e.key)
-                     for m in jtjv_lib.MODES}
+                     for m in jtjv_lib.traj_jtjv.launches}
     print(f"    one eager LM step ({lm_cfg.cg_iters} CG iterations and the diagonal on the "
           f"JtJ.v kernel): {st['t_step'] * 1e3:.1f} ms, {st['peak_gib']:.2f} GiB above the "
           f"inputs at peak; profiled: wall {st['t_prof'] * 1e3:.1f} ms, {st['launches']} "
@@ -1661,6 +1661,7 @@ def kinematic_cli_phase(torch, dev, skel) -> None:
     from chd_tpu_torch.core import bvh, fk
     from chd_tpu_torch.kinematics import batch as batch_lib
     from chd_tpu_torch.kinematics import jtjv as jtjv_lib
+    from chd_tpu_torch.ops import jtjv as jtjv_ops
     from chd_tpu_torch.pipeline import cli
     from chd_tpu_torch.pipeline.run import run_kinematic_stage
     from chd_tpu_torch.utils.config import PipelineConfig
@@ -1682,7 +1683,7 @@ def kinematic_cli_phase(torch, dev, skel) -> None:
             return jtjv_lib.Linearization(self, x, data, w._replace(
                 **{self.term: torch.zeros_like(getattr(w, self.term))}))
 
-    init = batch_lib.BatchConsts.__init__
+    rule = jtjv_ops.supplier
     prepare = batch_lib.prepare_batch_arrays
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1694,15 +1695,19 @@ def kinematic_cli_phase(torch, dev, skel) -> None:
             point, contacts) of one run of the dir on ``device``: on the card
             through the CLI, its products, where ``product`` is given, the
             supplier ``product(layout)`` (None: autograd's) in the kernel's
-            place; on the CPU through ``run_kinematic_stage``, the 3D inputs
-            moved by ``ulps`` float32 roundings."""
+            place, one a layout; on the CPU through ``run_kinematic_stage``,
+            the 3D inputs moved by ``ulps`` float32 roundings."""
             root = tempfile.mkdtemp(dir=tmp)
             vd = synth_video_dir(root, skel)
+            made = {}
 
-            def consts(self, *a, **k):
-                init(self, *a, **k)
-                if product is not None and self.product is not None:
-                    self.product = product(self.layout)
+            def supplier(x0, make):
+                found = rule(x0, make)
+                if product is None or not isinstance(found, jtjv_lib.TrajectoryProduct):
+                    return found
+                if found not in made:
+                    made[found] = product(found.layout)
+                return made[found]
 
             def moved(problems, *a, **k):
                 eps = np.finfo(np.float32).eps
@@ -1711,7 +1716,7 @@ def kinematic_cli_phase(torch, dev, skel) -> None:
 
             t = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()), \
-                    mock.patch.object(batch_lib.BatchConsts, "__init__", consts), \
+                    mock.patch.object(jtjv_ops, "supplier", supplier), \
                     mock.patch.object(batch_lib, "prepare_batch_arrays", moved):
                 if device == "cpu":
                     run_kinematic_stage(vd, PipelineConfig().override(
@@ -1867,7 +1872,7 @@ def jtjv_phase(torch, dev, smi: str, launches: dict) -> list:
         name = str(dtype).split(".")[-1]
         x, data, w, consts = setup(dtype)
         v = v64.to(dtype)
-        lin = consts.product(x, data, w)
+        lin = consts.layout.residual.product_for(x)(x, data, w)
         # the float64 reference at this dtype's point
         ref = autograd(x.double(), type(data)(*(None if t is None else t.double() for t in data)),
                        type(w)(*(t.double() for t in w)), consts64)
@@ -1910,7 +1915,7 @@ def jtjv_phase(torch, dev, smi: str, launches: dict) -> list:
                 "library_ms": library_ms,  # torch.func's double vjp as a CUDA graph
             })
         if dtype == torch.float32:
-            lin_bad = consts.product(x, data, w._replace(proj=torch.zeros_like(w.proj)))
+            lin_bad = lin.product(x, data, w._replace(proj=torch.zeros_like(w.proj)))
             bad = rel(lin_bad(v), ref(v.double()))
             print(f"    control: the product without its projection block, float32: relative "
                   f"error {bad:.3e} (must exceed {JTJV_REL[name]})")
@@ -2138,7 +2143,7 @@ def banded_phase(torch, dev, smi: str, pcg: dict) -> None:
 
     def one_step():
         return lm_lib.lm_step(res_fn, x0, lam, c0, lm_cfg, banded_masks=consts.masks,
-                              product=lambda z: consts.product(z, *args))
+                              product=lm_lib._bound(consts.layout.residual.product_for(x0), args))
 
     st, pst = profiled_step(one_step), pcg["step"]
     print(f"    one eager banded LM step ({consts.masks.shape[0]} banded products, "

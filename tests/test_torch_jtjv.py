@@ -14,10 +14,12 @@ transpose in plain torch, is held against autograd's double vjp in float64:
 - an ``lm_step`` with the emulation as its product, in its three inner
   solves, within 1e-9 of the autograd step.
 And: each solve counts the path it took (a CPU kinematic call and a
-physics solve take autograd), the product goes into the graph key, the
-kernel's wrapper refuses CPU tensors, and the tree tables refuse trees the
-kernel does not take. Float64, one intra-op thread (as the other solver
-files); the file imports no JAX.
+physics solve take autograd), the residual's supplier goes into the graph
+key, and with the emulation in the kernel's place a call takes it in both
+stages and a later stage finds the call's key; the kernel's wrapper refuses
+CPU tensors, and the tree tables refuse trees the kernel does not take.
+Float64, one intra-op thread (as the other solver files); the file imports
+no JAX.
 """
 import os
 
@@ -34,6 +36,7 @@ from chd_tpu_torch.physics import collocation as co
 from chd_tpu_torch.physics import synth
 from chd_tpu_torch.utils import profiling
 from chip_smoke import kin_problem
+from torch_jtjv_helpers import RecordingGraphs, emulate
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 GOLDEN = np.load(os.path.join(FIXTURES, "trajectory_golden.npz"))
@@ -111,7 +114,7 @@ def test_emulated_product_matches_autograd(B, F, tile, stage):
     w = _weights(STAGES[stage])
     v = torch.from_numpy(np.random.default_rng(F).normal(size=x.shape))
     want = _autograd(data, x, w, lay)(v)
-    got = jtjv.EmulatedProduct(lay, tile=tile)(x, data, w)(v)
+    got = jtjv.TrajectoryProduct(lay).emulated(tile)(x, data, w)(v)
     _close(got, want, 1e-10)
 
 
@@ -127,9 +130,10 @@ def test_emulated_products_over_a_tangent_axis_match_autograd():
     mask = banded.coloring_masks(F, D, dtype=F64, device="cpu")[4]
     vs = torch.cat([vs, mask.expand(1, *x.shape)])
     want = torch.func.vmap(_autograd(data, x, w, lay))(vs)
-    got = jtjv.EmulatedProduct(lay, tile=2)(x, data, w).many(vs)
+    lin = jtjv.TrajectoryProduct(lay).emulated(2)(x, data, w)
+    got = lin.many(vs)
     _close(got, want, 1e-10)
-    bcast = jtjv.EmulatedProduct(lay, tile=2)(x, data, w).many(mask.expand(1, *x.shape))
+    bcast = lin.many(mask.expand(1, *x.shape))
     _close(bcast[0], want[2], 1e-10)
 
 
@@ -142,10 +146,10 @@ def test_emulated_diagonal_is_the_coloring_diagonal(B, F):
     jtjv_fn = _autograd(data, x, w, lay)
     m = masks.unsqueeze(1).expand((masks.shape[0],) + x.shape)
     want = torch.func.vmap(lambda mk: mk * jtjv_fn(mk))(m).sum(0)
-    got = jtjv.EmulatedProduct(lay)(x, data, w).diag(masks)
-    _close(got, want, 1e-10)
+    lin = jtjv.TrajectoryProduct(lay).emulated()(x, data, w)
+    _close(lin.diag(masks), want, 1e-10)
     with pytest.raises(ValueError, match="frame_coloring_masks"):
-        jtjv.EmulatedProduct(lay)(x, data, w).diag(masks[:-1])
+        lin.diag(masks[:-1])
 
 
 @pytest.mark.parametrize("solver", ["pcg", "banded", "lambda"])
@@ -162,7 +166,7 @@ def test_lm_step_with_the_emulation_follows_the_autograd_step(solver):
     lam = torch.full((2, 1), 1e-3, dtype=F64)
     c = 0.5 * (res(x) ** 2).sum(-1, keepdim=True)
     want = lm.lm_step(res, x, lam, c, cfg, **kw)
-    prod = jtjv.EmulatedProduct(lay, tile=4)
+    prod = jtjv.TrajectoryProduct(lay).emulated(4)
     got = lm.lm_step(res, x, lam, c, cfg, **kw, product=lambda z: prod(z, data, w))
     assert not torch.equal(got[0], x)  # the step moved
     _close(got[0] - x, want[0] - x, 1e-9)
@@ -170,7 +174,7 @@ def test_lm_step_with_the_emulation_follows_the_autograd_step(solver):
     assert torch.equal(got[1], want[1])
 
 
-def test_each_solve_counts_its_path():
+def test_each_solve_counts_its_path(monkeypatch):
     F = 4
     data, x = _batch(2, F, seed=5)
     lay = residuals.Layout(PARENTS, "cpu", F64)
@@ -178,8 +182,8 @@ def test_each_solve_counts_its_path():
     cfg = lm.LMConfig(max_iters=1, cg_iters=2)
     profiling.reset()
     lm.lm_solve(lay.residual, x, (data, traj_lib.STAGE1), cfg, masks)
-    lm.lm_solve(lay.residual, x, (data, traj_lib.STAGE1), cfg, masks,
-                product=jtjv.EmulatedProduct(lay))
+    emulate(monkeypatch)
+    lm.lm_solve(lay.residual, x, (data, traj_lib.STAGE1), cfg, masks)
     assert profiling.snapshot()["counters"] == {"lm.jtjv.autograd": 1, "lm.jtjv.emulation": 1}
 
 
@@ -194,7 +198,8 @@ def test_a_cpu_kinematic_call_and_a_physics_solve_take_autograd():
                                     lm_cfg=lm.LMConfig(max_iters=1, cg_iters=2),
                                     device="cpu", ik_solver="lu")
     assert profiling.snapshot()["counters"] == {"lm.jtjv.autograd": 2}
-    assert batch.batch_consts(PARENTS, 6, batch.IKConfig(), "cpu", F64).product is None
+    consts = batch.batch_consts(PARENTS, 6, batch.IKConfig(), "cpu", F64)
+    assert consts.layout.residual.product_for(consts.smooth) is None
 
     profiling.reset()
     pb, _ = phys_batch.pad_phys_inputs([synth.walking_input(8, seed=0)], device="cpu",
@@ -205,32 +210,52 @@ def test_a_cpu_kinematic_call_and_a_physics_solve_take_autograd():
     assert set(counters) == {"lm.jtjv.autograd"} and counters["lm.jtjv.autograd"] >= 2
 
 
-class _RecordingGraphs:
-    """A ``GraphCache`` stand-in that runs each step eagerly and keeps its key."""
-
-    def __init__(self):
-        self.keys = []
-
-    def run(self, key, step, state, args, iters):
-        self.keys.append(key)
-        for _ in range(iters):
-            state = step(state, args)
-        return state
-
-
-def test_the_product_goes_into_the_graph_key():
+def test_the_product_goes_into_the_graph_key(monkeypatch):
     F = 3
     data, x = _batch(1, F, seed=8)
     lay = residuals.Layout(PARENTS, "cpu", F64)
     masks = lm.frame_coloring_masks(F, D, dtype=F64, device="cpu")
     cfg = lm.LMConfig(max_iters=1, cg_iters=2)
-    prod = jtjv.EmulatedProduct(lay)
-    graphs = _RecordingGraphs()
-    for product in (None, prod, prod):
-        lm.lm_solve(lay.residual, x, (data, traj_lib.STAGE1), cfg, masks, graphs,
-                    product=product)
+    graphs = RecordingGraphs()
+    lm.lm_solve(lay.residual, x, (data, traj_lib.STAGE1), cfg, masks, graphs)
+    made = emulate(monkeypatch)
+    for _ in range(2):
+        lm.lm_solve(lay.residual, x, (data, traj_lib.STAGE1), cfg, masks, graphs)
     k0, k1, k2 = graphs.keys
+    (prod,) = made.values()
+    assert lay.residual.product_for(x) is prod and prod.path == "emulation"
     assert k0 != k1 and k1 == k2 and prod in k1 and None in k0
+
+
+def test_a_call_takes_its_layouts_product_and_a_later_stage_finds_its_key(monkeypatch):
+    """With the emulation put in the kernel's place, a kinematic call's two
+    LM solves take its layout's one product and count it, and an
+    ``lm_stage`` that passes no product of its own (as the benchmark's
+    traced stages do) finds the call's graph key."""
+    g = GOLDEN
+    skel = Animation(g["skel_rotations"], g["skel_positions"], g["skel_orients"],
+                     g["skel_offsets"], list(PARENTS))
+    rng = np.random.default_rng(4)
+    problems = [kin_problem(rng, skel, 6, 0.3), kin_problem(rng, skel, 5, 0.3)]
+    made = emulate(monkeypatch)
+    graphs = RecordingGraphs()
+    cfg = lm.LMConfig(max_iters=1, cg_iters=2)
+    profiling.reset()
+    batch.optimize_trajectory_batch(problems, skel, ik_iterations=2, lm_cfg=cfg, device="cpu",
+                                    dtype=F64, ik_solver="lu", graphs=graphs)
+    assert profiling.snapshot()["counters"] == {"lm.jtjv.emulation": 2}
+    lm_keys = [k for k in graphs.keys if k[0] == "lm_step"]
+    assert len(lm_keys) == 2 and lm_keys[0] == lm_keys[1]
+    (prod,) = made.values()
+    assert prod in lm_keys[0] and prod.path == "emulation"
+    arrs, F = batch.prepare_batch_arrays(problems, skel, device="cpu", dtype=F64)
+    ik_cfg = batch.IKConfig(iterations=2, damping=7.0, solver="lu")
+    consts = batch.batch_consts(PARENTS, F, ik_cfg, "cpu", F64, graphs)
+    x0 = batch.initial_x(arrs["rot0"], arrs["pos0"])
+    zero3 = torch.zeros((2, 3), dtype=F64)
+    batch.lm_stage(x0, batch.make_data(arrs, consts, arrs["vc"], zero3, zero3),
+                   traj_lib.STAGE1, consts, cfg, graphs)
+    assert graphs.keys[-1] == lm_keys[0] and len(made) == 1
 
 
 def test_the_kernel_wrapper_refuses_cpu_tensors():
@@ -238,10 +263,11 @@ def test_the_kernel_wrapper_refuses_cpu_tensors():
     lay = residuals.Layout(PARENTS, "cpu", F64)
     prod = jtjv.TrajectoryProduct(lay)
     assert prod.path == "kernel" and prod.max_depth == 6 and prod.max_children == 5
+    lin = prod(x, data, _weights(traj_lib.STAGE1))
     with pytest.raises(ValueError, match="CUDA"):
-        prod(x, data, _weights(traj_lib.STAGE1))(torch.ones_like(x))
+        lin(torch.ones_like(x))
     with pytest.raises(ValueError, match="mode"):
-        jtjv.traj_jtjv("jvp", x, data, _weights(traj_lib.STAGE1), prod)
+        jtjv.traj_jtjv("jvp", lin)
 
 
 @pytest.mark.parametrize("parents,match", [

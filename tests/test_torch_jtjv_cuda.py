@@ -29,6 +29,7 @@ from chd_tpu_torch.kinematics.ik import IKConfig
 from chd_tpu_torch.utils import profiling
 from chd_tpu_torch.utils.cuda_graph import GraphCache
 from chip_smoke import kin_problem
+from torch_jtjv_helpers import linearize
 
 pytestmark = pytest.mark.cuda
 
@@ -99,14 +100,15 @@ def test_kernel_matches_autograd_and_the_emulation(card, skel, shape):
     v = torch.randn(x.shape, dtype=torch.float64, device=card,
                     generator=torch.Generator(card).manual_seed(1))
     want = _autograd(x, data, w, consts)(v)
-    got = consts.product(x, data, w)(v)
+    got = linearize(consts.layout.residual, x, data, w)(v)
     assert _rel(got, want) <= F64_REL
     if shape != "cell":  # the emulation is slow at the cell's size on the host
-        emu = jtjv.EmulatedProduct(residuals.Layout(skel.parents, "cpu", torch.float64))
-        assert _rel(got, emu(*_to(x, data, w, "cpu"))(v.cpu()).to(card)) <= F64_REL
+        emu = jtjv.TrajectoryProduct(residuals.Layout(skel.parents, "cpu", torch.float64))
+        emu = emu.emulated()(*_to(x, data, w, "cpu"))
+        assert _rel(got, emu(v.cpu()).to(card)) <= F64_REL
     # float32 against the float64 product at the same point
     x32, data32, w32, consts32 = _setup(skel, lens, torch.float32)
-    got32 = consts32.product(x32, data32, w32)(v.float())
+    got32 = linearize(consts32.layout.residual, x32, data32, w32)(v.float())
     want64 = _autograd(*_to(x32, data32, w32, card, torch.float64), consts)(v.float().double())
     assert _rel(got32, want64) <= F32_REL
 
@@ -121,12 +123,13 @@ def test_kernel_diagonal_and_tangent_axis_match_autograd(card, skel, shape):
     masks = lm.frame_coloring_masks(F, D, dtype=torch.float64, device=card)
     m = masks.unsqueeze(1).expand((masks.shape[0],) + x.shape)
     want = torch.func.vmap(lambda mk: mk * fn(mk))(m).sum(0)
-    lin = consts.product(x, data, w)
+    lin = linearize(consts.layout.residual, x, data, w)
     assert _rel(lin.diag(masks), want) <= F64_REL
     x32, data32, w32, consts32 = _setup(skel, lens, torch.float32)
     fn32 = _autograd(*_to(x32, data32, w32, card, torch.float64), consts)
     want32 = torch.func.vmap(lambda mk: mk * fn32(mk))(m).sum(0)
-    assert _rel(consts32.product(x32, data32, w32).diag(masks.float()), want32) <= F32_REL
+    lin32 = linearize(consts32.layout.residual, x32, data32, w32)
+    assert _rel(lin32.diag(masks.float()), want32) <= F32_REL
     # a leading tangent axis: two random tangents and a mask read through
     # a stride-0 sequence axis
     vs = torch.randn((2,) + tuple(x.shape), dtype=torch.float64, device=card)
@@ -140,7 +143,7 @@ def test_kernel_diagonal_and_tangent_axis_match_autograd(card, skel, shape):
 def test_kernel_is_bitwise_repeatable_and_replays_alike(card, skel, dtype):
     x, data, w, consts = _setup(skel, LENS["cell"], dtype)
     v = torch.randn(x.shape, dtype=dtype, device=card)
-    lin = consts.product(x, data, w)
+    lin = linearize(consts.layout.residual, x, data, w)
     masks = consts.masks
     first, first_d = lin(v), lin.diag(masks)
     for _ in range(3):
@@ -180,27 +183,28 @@ def test_lm_step_capture_holds_few_kernels_and_solves_count_the_kernel(card, ske
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card, skel):
     x, data, w, consts = _setup(skel, [4, 3], torch.float32)
-    lin = consts.product(x, data, w)
+    product = consts.layout.residual.product_for(x)
+    lin = product(x, data, w)
     v = torch.ones_like(x)
     with pytest.raises(ValueError, match="CUDA"):  # device
-        consts.product(x.cpu(), data, w)(v.cpu())
+        product(x.cpu(), data, w)(v.cpu())
     with pytest.raises(TypeError):                 # type of the data
-        consts.product(x, data._replace(proj_weights=data.proj_weights.double()), w)(v)
+        product(x, data._replace(proj_weights=data.proj_weights.double()), w)(v)
     with pytest.raises(TypeError):                 # a weight given as a float
-        consts.product(x, data, w._replace(floor=10.0))(v)
+        product(x, data, w._replace(floor=10.0))(v)
     with pytest.raises(TypeError):                 # type of x
-        consts.product(x.half(), data, w)(v.half())
+        product(x.half(), data, w)(v.half())
     with pytest.raises(TypeError):                 # type of the tangent
         lin(v.double())
     with pytest.raises(ValueError, match="shape"):  # shape
-        consts.product(x, data._replace(vel_constraints=data.vel_constraints[:, :2]), w)(v)
+        product(x, data._replace(vel_constraints=data.vel_constraints[:, :2]), w)(v)
     with pytest.raises(ValueError):                # shape of the tangent
         lin(v[:, :-1])
     with pytest.raises(ValueError, match="contiguous"):  # layout of x
         wide = torch.zeros((x.shape[0], 2 * x.shape[1]), device=card)
-        consts.product(wide[:, ::2], data, w)(v)
+        product(wide[:, ::2], data, w)(v)
     with pytest.raises(ValueError, match="contiguous"):  # layout of the tangent
         lin(torch.zeros((x.shape[0], 2 * x.shape[1]), device=card)[:, ::2])
     with pytest.raises(ValueError, match="contiguous"):  # layout of the data
         t = data.proj_weights.transpose(1, 2).contiguous().transpose(1, 2)
-        consts.product(x, data._replace(proj_weights=t), w)(v)
+        product(x, data._replace(proj_weights=t), w)(v)

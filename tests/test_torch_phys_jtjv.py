@@ -26,7 +26,6 @@ wrapper refuses CPU tensors. Float64, one intra-op thread (as the other
 solver files); the file imports no JAX.
 """
 import copy
-import functools
 
 import numpy as np
 import pytest
@@ -39,6 +38,7 @@ from chd_tpu_torch.physics import jtjv
 from chd_tpu_torch.physics.synth import walking_input
 from chd_tpu_torch.utils import profiling
 from chip_smoke import phys_jtjv_point, phys_jtjv_structures
+from torch_jtjv_helpers import RecordingGraphs, emulate
 
 F64 = torch.float64
 REL = 1e-12
@@ -61,7 +61,7 @@ def _setup(lens, structure, start=False, tile=jtjv.TILE, seed=0):
     fn = co.make_al_residual_fn(w, rho)
     r, vjp_fn = torch.func.vjp(lambda z: fn(z, *args), x)
     _, lin = torch.func.vjp(lambda c: vjp_fn(c)[0], torch.zeros_like(r))
-    prod = jtjv.EmulatedProduct(*co._structure(w, rho), tile=tile)
+    prod = jtjv.product_for(*co._structure(w, rho)).emulated(tile)
     return x, args, (lambda v: vjp_fn(lin(v)[0])[0]), prod(x, *args)
 
 
@@ -127,7 +127,7 @@ def _planted(lin, fault):
     bad = copy.copy(lin)
     if fault == "dyn":  # the Newton–Euler block, which no hinge scales
         p = lin.product
-        bad.product = jtjv.EmulatedProduct(p.accel, p.active[1:], tile=p.tile)
+        bad.product = jtjv.PhysicsProduct(p.accel, p.active[1:]).emulated(p.tile)
     elif fault == "tie as 1":
         bad.hinge = dict(lin.hinge, force=torch.where(lin.hinge["force"] == 0.5, 1.0,
                                                       lin.hinge["force"]))
@@ -157,9 +157,8 @@ def test_each_structure_has_its_own_product_and_graph_key(monkeypatch):
     assert all(jtjv.product_for(*co._structure(*wr)) is products[s]
                for s, wr in STRUCTURES.items())
 
-    emulated = functools.lru_cache(maxsize=None)(jtjv.EmulatedProduct)
-    monkeypatch.setattr(jtjv, "solve_product", lambda accel, active, x0: emulated(accel, active))
-    graphs = _RecordingGraphs()
+    emulated = emulate(monkeypatch)
+    graphs = RecordingGraphs()
     pb, x, lams = phys_jtjv_point([6, 5], "cpu", F64)
     masks = lm.frame_coloring_masks(6, co.DOF, dtype=F64, device="cpu")
     cfg = lm.LMConfig(max_iters=1, cg_iters=2)
@@ -169,8 +168,9 @@ def test_each_structure_has_its_own_product_and_graph_key(monkeypatch):
     assert profiling.snapshot()["counters"] == {"lm.jtjv.phys_emulation": 8}
     keys = graphs.keys[::2]
     assert len(set(keys)) == 4 and graphs.keys[1::2] == keys
-    for key, (w, rho) in zip(keys, STRUCTURES.values()):
-        assert emulated(*co._structure(w, rho)) in key
+    assert len(emulated) == 4
+    for key, s in zip(keys, STRUCTURES):
+        assert emulated[products[s]] in key
     w, rho = STRUCTURES["DYN"]
     lm.lm_solve(co.make_al_residual_fn(w, rho), x, (pb, lams, w, rho),
                 lm.LMConfig(max_iters=3, cg_iters=2), masks, graphs)
@@ -183,8 +183,7 @@ def test_an_lm_stage_with_the_emulation_follows_the_autograd_stage(monkeypatch):
     cfg = lm.LMConfig(max_iters=3, cg_iters=15, init_lambda=1e-2)
     w, rho = STRUCTURES["DYN"]
     want = co.run_stage(x, pb, lams, w, rho, 1, cfg, masks)
-    monkeypatch.setattr(jtjv, "solve_product",
-                        lambda accel, active, x0: jtjv.EmulatedProduct(accel, active, tile=3))
+    emulate(monkeypatch, tile=3)
     got = co.run_stage(x, pb, lams, w, rho, 1, cfg, masks)
     assert not torch.equal(got[0], x)  # the stage moved
     assert float((got[0] - want[0]).abs().max()) <= 1e-9 * float((want[0] - x).abs().max())
@@ -211,16 +210,3 @@ def test_the_kernel_wrapper_refuses_cpu_tensors():
         jtjv.phys_jtjv("jvp", lin)
     with pytest.raises(ValueError, match="blocks"):
         jtjv.PhysicsProduct(True, ("dyn", "torque"))
-
-
-class _RecordingGraphs:
-    """A ``GraphCache`` stand-in that runs each step eagerly and keeps its key."""
-
-    def __init__(self):
-        self.keys = []
-
-    def run(self, key, step, state, args, iters):
-        self.keys.append(key)
-        for _ in range(iters):
-            state = step(state, args)
-        return state

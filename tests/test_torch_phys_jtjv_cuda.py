@@ -32,6 +32,7 @@ from chd_tpu_torch.physics.synth import walking_input
 from chd_tpu_torch.utils import profiling
 from chd_tpu_torch.utils.cuda_graph import GraphCache
 from chip_smoke import phys_jtjv_point, phys_jtjv_structures
+from torch_jtjv_helpers import linearize
 
 pytestmark = pytest.mark.cuda
 
@@ -56,7 +57,7 @@ def _setup(lens, structure, dtype, start):
     pb, x, lams = phys_jtjv_point(lens, "cuda", dtype, start=start)
     args = lm._tensor_floats((pb, lams, w, rho), x)
     fn = co.make_al_residual_fn(w, rho)
-    return x, args, fn, jtjv.product_for(*co._structure(w, rho))(x, *args)
+    return x, args, fn, linearize(fn, x, *args)
 
 
 def _autograd(fn, x, args):

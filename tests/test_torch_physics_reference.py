@@ -238,12 +238,10 @@ def test_spans_nest_under_the_call_and_leave_the_results_bitwise(small):
         assert r["parent"] == "phys.call" and r["call"] == cid, name
         if name in al:
             assert r["attrs"] == {"steps": al[name] * scfg.lm.max_iters}, name
-    assert snap["counters"]["phys.durations_ok"] == int(np.asarray(out[4]).sum())
     assert snap["counters"]["lm.jtjv.autograd"] == sum(al.values())
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(batch_lib, "span", lambda *a, **kw: contextlib.nullcontext())
-        mp.setattr(batch_lib, "count", lambda *a, **kw: None)
         plain = _solve(small, torch.float32)
     for a, b in zip(out[:3], plain[:3]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -39,7 +39,7 @@ MEANT = {
          "the CUDA kernel takes 64-row blocks and pads no rows"),
     ("kinematics/residuals.py", "residual_fn_for"):
         ("chd_tpu_torch.kinematics.residuals.Layout.residual",
-         "a method of a Layout holding the tree's constants on a device"),
+         "a callable of a Layout holding the tree's constants on a device"),
     ("kinematics/residuals.py", "SMOOTH_VEL_XYZ"):
         ("chd_tpu_torch.kinematics.residuals.Layout",
          "Layout.smooth_xyz, a tensor on the layout's device"),
